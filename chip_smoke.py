@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero; nothing is caught or skipped):
   1. card and build: nvidia-smi's name and power limit, torch's CUDA
-     version, the kernels' build time (nvcc, sm_90a, from csrc/);
+     version, the kernels' build time (nvcc, sm_90a, from csrc/); what the
+     compiler made of them and the card's integer issue rates
+     (zkvm_prover_tpu_torch/kernel_report.py);
   2. every kernel against its plain torch version on the card, at the
      shapes the main path gives it: mismatches (must be 0), time per launch
      (CUDA events), the plain version's time and the bound;
@@ -13,7 +15,10 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      --seed, proven on cuda at default_config() (100 queries, 16 PoW bits,
      blowup 2) with the launch counts zeroed just before and read just
      after; per-phase wall-clock, peak memory, verify (True) and a tampered
-     proof (False);
+     proof (False); then a second (warm) proof, and a third under
+     torch.profiler: device ms and launches per kernel and per shape, the
+     device's idle share over the proof, and at most 3 compress launches
+     per Merkle tree;
   4. cross-device identity: a 2^10-row proof at fast_test_config() on cuda
      and on cpu, equal in every field but `stat`;
   5. the kernels line (JSON), the card line, and last the result line.
@@ -37,6 +42,18 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT_MULS_PER_S = 16.75e12
 MULS_PER_MODMUL = 3           # 32x32->64 product, m = lo * NP, m * p
 MODMULS_PER_PERM = 772        # Poseidon2-16: 8*16*4 (S-box) + 13*(4 + 16)
+
+
+# C entry point -> (launch counter, shape from the scalar arguments)
+ENTRY_SHAPES = {
+    "ntt_block": ("ntt_block", lambda a: f"n={a[2]} W={a[3]} k={a[4]}"),
+    "ntt_stage": ("ntt_stage", lambda a: f"n={a[2]} W={a[3]}"),
+    "p2_permute": ("poseidon2_permute", lambda a: f"({a[2]},16)"),
+    "p2_hash_rows": ("poseidon2_hash_rows", lambda a: f"({a[1]},{a[2]})"),
+    "p2_compress": ("poseidon2_compress", lambda a: f"{a[1]} digests, {a[2]} levels"),
+    "mont_matmul_rows": ("mont_matmul_rows", lambda a: f"({a[2]},{a[3]})"),
+    "mont_matmul_cols": ("mont_matmul_cols", lambda a: f"({a[2]},{a[3]})"),
+}
 
 
 def card_line() -> str:
@@ -142,21 +159,33 @@ def check_kernels(log_n: int, width: int, seed: int):
         del x
 
     src_p2 = "zkvm_prover_tpu_torch/csrc/poseidon2.cu"
-    mat = random_field(gen, (m, width), dev)
-    blocks = -(-width // p2.RATE)
-    got = p2.hash_rows(mat)
-    want = p2.hash_rows_plain(mat)
-    record("poseidon2_hash_rows", src_p2, "zkvm_prover_tpu/ops/poseidon2.py:225",
-           f"({m},{width})", max_err(got, want), time_ms(lambda: p2.hash_rows(mat)),
-           time_ms(lambda: p2.hash_rows_plain(mat), reps=1, warmup=False),
-           m * width * 4 + m * 32, m * blocks * MODMULS_PER_PERM * MULS_PER_MODMUL)
-    del mat, got, want
+    # the trace, the quotient chunks and the largest FRI codeword
+    for r, c in ((m, width), (m, 8), (n, 4)):
+        mat = random_field(gen, (r, c), dev)
+        blocks = max(1, -(-c // p2.RATE))
+        record("poseidon2_hash_rows", src_p2, "zkvm_prover_tpu/ops/poseidon2.py:225",
+               f"({r},{c})", max_err(p2.hash_rows(mat), p2.hash_rows_plain(mat)),
+               time_ms(lambda: p2.hash_rows(mat)),
+               time_ms(lambda: p2.hash_rows_plain(mat), reps=1, warmup=False),
+               r * c * 4 + r * 32, r * blocks * MODMULS_PER_PERM * MULS_PER_MODMUL)
+        del mat
     pairs = random_field(gen, (n, 16), dev)
     record("poseidon2_compress", src_p2, "zkvm_prover_tpu/ops/poseidon2.py:248",
            f"({n},16)", max_err(p2.compress16(pairs), p2.permute_plain(pairs)[:, :8]),
            time_ms(lambda: p2.compress16(pairs)),
            time_ms(lambda: p2.permute_plain(pairs)[:, :8], reps=1, warmup=False),
            n * 96, n * MODMULS_PER_PERM * MULS_PER_MODMUL)
+    # every level of a tree over the trace's 2^(log_n+1) leaf digests
+    lm = log_n + 1
+    leaves = random_field(gen, (m, 8), dev)
+    err = max(max_err(a, b) for a, b in zip(p2.compress_levels(leaves, lm),
+                                             p2.compress_levels_plain(leaves, lm)))
+    record("poseidon2_compress", src_p2, "zkvm_prover_tpu/ops/poseidon2.py:248",
+           f"2^{lm} leaves, {lm} levels", err,
+           time_ms(lambda: p2.compress_levels(leaves, lm)),
+           time_ms(lambda: p2.compress_levels_plain(leaves, lm), reps=1, warmup=False),
+           m * 32 + (m - 1) * 32, (m - 1) * MODMULS_PER_PERM * MULS_PER_MODMUL)
+    del leaves
     grind_batch = 1 << 18
     states = random_field(gen, (grind_batch, 16), dev)
     record("poseidon2_permute", src_p2, "zkvm_prover_tpu/ops/poseidon2.py:182",
@@ -207,6 +236,95 @@ def reset_counts():
     for d in (ntt_fused.launches, p2.launches, mm.launches):
         for key in d:
             d[key] = 0
+
+
+def profile_proof(prove, trace_path: str) -> dict:
+    """One proof under torch.profiler (CPU and CUDA activity): device ms and
+    launches per kernel and per shape, the device's idle share over the
+    proof, and the compress launches of each Merkle tree. Shapes come from
+    the kernels' C calls, logged in order and matched one to one with the
+    trace's launches of those kernels (one stream, so the orders agree)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from zkvm_prover_tpu_torch import _build
+    from zkvm_prover_tpu_torch.kernel_report import ENTRY_KERNELS, short_name
+
+    lib = _build.lib()
+    calls = []
+    originals = {name: getattr(lib, name) for name in ENTRY_SHAPES}
+
+    def logger(name, fn):
+        def logged(*args):
+            calls.append((name, args))
+            return fn(*args)
+        return logged
+
+    for name, fn in originals.items():
+        setattr(lib, name, logger(name, fn))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("prove"):
+                prove()
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(trace_path)
+    finally:
+        for name, fn in originals.items():
+            setattr(lib, name, fn)
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    win = next(e for e in events if e["name"] == "prove" and e.get("cat") == "user_annotation")
+    w0, w1 = win["ts"], win["ts"] + win["dur"]
+    dev = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                 key=lambda e: e["ts"])
+    busy, end = 0.0, w0
+    for e in dev:
+        a, b = max(e["ts"], end), min(e["ts"] + e["dur"], w1)
+        if b > a:
+            busy += b - a
+        end = max(end, min(e["ts"] + e["dur"], w1))
+    ours = set(k for ks in ENTRY_KERNELS.values() for k in ks)
+    per_kernel = collections.defaultdict(lambda: [0, 0.0])
+    mine = []
+    for e in dev:
+        name = short_name(e["name"])
+        if e["cat"] != "kernel":
+            name = e["cat"]
+        elif name.split("<")[0] not in ours:
+            name = "other kernels (plain torch)"
+        else:
+            mine.append(e)
+        per_kernel[name][0] += 1
+        per_kernel[name][1] += e["dur"] / 1e3
+    expected = [(entry, k, ENTRY_SHAPES[entry][1](args))
+                for entry, args in calls for k in ENTRY_KERNELS[entry]]
+    per_shape = collections.defaultdict(lambda: [0, 0.0])
+    matched = len(expected) == len(mine) and all(
+        k in e["name"] for (_, k, _), e in zip(expected, mine))
+    if matched:
+        for (entry, k, shape), e in zip(expected, mine):
+            key = (ENTRY_SHAPES[entry][0] + ("/finish" if k == "mm_cols_finish" else ""),
+                   shape)
+            per_shape[key][0] += 1
+            per_shape[key][1] += e["dur"] / 1e3
+    trees = []
+    for entry, _ in calls:
+        if entry == "p2_hash_rows":
+            trees.append(0)
+        elif entry == "p2_compress" and trees:
+            trees[-1] += 1
+    return {"window_ms": (w1 - w0) / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / (w1 - w0),
+            "per_kernel": {k: {"launches": n, "ms": ms} for k, (n, ms) in
+                           sorted(per_kernel.items(), key=lambda kv: -kv[1][1])},
+            "shapes_matched": matched,
+            "per_shape": [{"kernel": k, "shape": sh, "launches": n, "ms": ms}
+                          for (k, sh), (n, ms) in sorted(per_shape.items(),
+                                                         key=lambda kv: -kv[1][1])],
+            "compress_launches_per_tree": trees}
 
 
 def poseidon2_trace(log_n: int, seed: int):
@@ -261,7 +379,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
-    from zkvm_prover_tpu_torch import _build
+    from zkvm_prover_tpu_torch import _build, kernel_report
     from zkvm_prover_tpu_torch.models.poseidon2_air import NUM_COLS, Poseidon2Air
     from zkvm_prover_tpu_torch.stark import prover, verifier
     from zkvm_prover_tpu_torch.stark.config import default_config, fast_test_config
@@ -278,6 +396,17 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     report["card"] = card
     print(f"[1] kernels built and loaded in {report['build_s']:.1f} s", flush=True)
+    probe_dir = str(_build.BUILD_DIR / "probe")
+    report["sass_per_op"] = kernel_report.op_counts(str(_build.CSRC), probe_dir)
+    for op, row in report["sass_per_op"].items():
+        print(f"[1] SASS per bb::{op}: {row['instructions']:g} {row['opcodes']}")
+    report["kernel_resources"] = kernel_report.kernel_resources(str(_build.build()))
+    for name, row in report["kernel_resources"].items():
+        print(f"[1] {name:24s} {row}")
+    report["pipe_rates"] = kernel_report.pipe_rates(probe_dir)
+    for row in report["pipe_rates"]:
+        print(f"[1] {row['op']:16s} {row['per_clock_per_sm']:7.2f} per clock per SM "
+              f"{row['sass']}", flush=True)
 
     # 2. kernels against their plain versions
     print("[2] kernels vs plain torch on the card; tolerance 0 (exact modular "
@@ -323,7 +452,34 @@ def main() -> int:
     report.update(prove_s=prove_s, verify_s=verify_s, peak_bytes=peak,
                   phases_ms={k: v for k, v in proof.stat.items() if k.endswith("_ms")},
                   launches=counts)
-    del proof, bad, trace
+    del proof, bad
+
+    # the same proof again in this process (warm), then once more profiled
+    t0 = time.perf_counter()
+    warm = prover.prove(air, trace, [], cfg)
+    torch.cuda.synchronize()
+    report["warm_prove_s"] = time.perf_counter() - t0
+    report["warm_phases_ms"] = {k: v for k, v in warm.stat.items() if k.endswith("_ms")}
+    print(f"[3] warm proof in {report['warm_prove_s']:.3f} s: "
+          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in report["warm_phases_ms"].items()),
+          flush=True)
+    del warm
+    trace_path = os.path.join(os.path.dirname(args.out) or ".", "chip_smoke_trace.json")
+    prof = profile_proof(lambda: prover.prove(air, trace, [], cfg), trace_path)
+    report["profile"] = prof
+    print(f"[3] profiled proof: window {prof['window_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.4f}")
+    for name, row in prof["per_kernel"].items():
+        print(f"      {name:30s} launches {row['launches']:6d}  device ms {row['ms']:9.3f}")
+    print(f"[3] per shape (matched to the C calls: {prof['shapes_matched']}):")
+    for row in prof["per_shape"]:
+        print(f"      {row['kernel']:24s} {row['shape']:26s} launches {row['launches']:4d}"
+              f"  device ms {row['ms']:8.3f}")
+    per_tree = prof["compress_launches_per_tree"]
+    print(f"[3] compress launches per Merkle tree: {per_tree}", flush=True)
+    if not per_tree or max(per_tree) > 3:
+        raise AssertionError("a Merkle tree took more than 3 compress launches")
+    del trace
     torch.cuda.empty_cache()
 
     # 4. cross-device identity

@@ -53,9 +53,20 @@ def test_coset_lde_cuda_equals_cpu(cuda):
     _same(ntt.coset_lde(x, 1), ntt.coset_lde(x.cpu(), 1))
 
 
-@pytest.mark.parametrize("cols", [1, 8, 9, 495])
-def test_hash_rows_kernel(cuda, cols):
-    m = _rand(cols, (1000, cols), cuda)
+@pytest.mark.parametrize("rows", [1, 127, 129, 4097])
+@pytest.mark.parametrize("cols", [1, 7, 8, 9, 16, 63, 64, 65, 495])
+def test_hash_rows_kernel(cuda, cols, rows):
+    """Widths around the 8-word block and the 32-word staged chunk; row
+    counts around the 128-row tile."""
+    m = _rand(cols * rows, (rows, cols), cuda)
+    _same(p2.hash_rows(m), p2.hash_rows_plain(m))
+
+
+def test_hash_rows_unaligned_view(cuda):
+    """The row sponge reads 4-byte words: a view one word past an aligned
+    start is taken as it is."""
+    m = _rand(5, (300 * 65 + 1,), cuda)[1:].view(300, 65)
+    assert m.data_ptr() % 16
     _same(p2.hash_rows(m), p2.hash_rows_plain(m))
 
 
@@ -65,18 +76,53 @@ def test_permute_and_compress_kernels(cuda):
     _same(p2.compress16(s), p2.permute_plain(s)[:, :8])
 
 
+@pytest.mark.parametrize("log_h", range(1, 14))
+def test_compress_levels_kernel(cuda, log_h):
+    d = _rand(log_h, (1 << log_h, 8), cuda)
+    before = p2.launches["poseidon2_compress"]
+    got = p2.compress_levels(d, log_h)
+    assert p2.launches["poseidon2_compress"] - before == -(-log_h // p2.LEVELS_PER_LAUNCH)
+    want = p2.compress_levels_plain(d, log_h)
+    assert len(got) == len(want) == log_h
+    for a, b in zip(got, want):
+        _same(a, b)
+
+
+@pytest.mark.parametrize("shapes", [[(64, 17), (64, 8), (16, 3), (2, 6)],
+                                    [(4096, 4), (4, 2)], [(8, 2), (1, 3)]])
+def test_commit_cuda_equals_cpu(cuda, shapes):
+    from zkvm_prover_tpu_torch.stark import merkle
+
+    mats = [_rand(h * w, (h, w), cuda) for h, w in shapes]
+    a = merkle.commit(mats)
+    b = merkle.commit([m.cpu() for m in mats])
+    assert len(a.levels) == len(b.levels)
+    for x, y in zip(a.levels, b.levels):
+        _same(x, y)
+
+
 def test_poseidon2_constants_follow_overrides(cuda):
+    """Every K2 kernel follows `load_constants` and `reset_constants`."""
     s = _rand(2, (64, 16), cuda)
+    m = _rand(3, (200, 20), cuda)
+
+    def check():
+        _same(p2.permute(s), p2.permute_plain(s))
+        _same(p2.hash_rows(m), p2.hash_rows_plain(m))
+        for a, b in zip(p2.compress_levels(s.view(128, 8), 7),
+                        p2.compress_levels_plain(s.view(128, 8), 7)):
+            _same(a, b)
+
     saved = dict(p2._OVERRIDES)
     try:
         rng = np.random.default_rng(9)
         p2.load_constants(16, rng.integers(0, bb.P, (8, 16)),
                           rng.integers(0, bb.P, 13), rng.integers(0, bb.P, 16))
-        _same(p2.permute(s), p2.permute_plain(s))
+        check()
     finally:
         p2.reset_constants()
         p2._OVERRIDES.update(saved)
-    _same(p2.permute(s), p2.permute_plain(s))
+    check()
 
 
 @pytest.mark.parametrize("r,c", [(1, 1), (37, 495), (4096, 8), (5000, 33)])
@@ -109,6 +155,8 @@ def test_wrappers_reject_misaligned_input(cuda):
         p2.permute(_rand(6, (16 * 8 + 1,), cuda)[1:].view(8, 16))
     with pytest.raises(ValueError):
         p2.compress16(_rand(7, (16 * 8 + 1,), cuda)[1:].view(8, 16))
+    with pytest.raises(ValueError):
+        p2.compress_levels(_rand(7, (8 * 8 + 1,), cuda)[1:].view(8, 8), 3)
     a = _rand(8, (8, 5), cuda)
     with pytest.raises(ValueError):
         mm.mont_matmul(a, _rand(9, (4 * 5 + 1,), cuda)[1:].view(5, 4))

@@ -124,11 +124,14 @@ def test_load_reference_constants(restore_constants):
 # ---------------------------------------------------------------------------
 
 MIXED = [[(16, 3)], [(16, 9), (16, 2)], [(32, 5), (8, 4), (4, 1)],
-         [(64, 17), (64, 8), (16, 3), (2, 6)]]
+         [(64, 17), (64, 8), (16, 3), (2, 6)], [(2048, 4), (4, 2)],
+         [(8, 2), (1, 3)], [(1, 5)]]
 
 
 @pytest.mark.parametrize("shapes", MIXED, ids=["one", "same-height",
-                                               "mixed", "mixed-wide"])
+                                               "mixed", "mixed-wide",
+                                               "tall-skip", "joins-root",
+                                               "one-row"])
 def test_merkle_root_and_openings(shapes):
     mats = [_rand(17 * i + h, (h, w)) for i, (h, w) in enumerate(shapes)]
     ref_tree = ref_merkle.commit(mats)
@@ -137,7 +140,7 @@ def test_merkle_root_and_openings(shapes):
     for lvl, ref_lvl in zip(tree.levels, ref_tree.levels):
         _same(lvl, ref_lvl)
     h_max = shapes[0][0]
-    idx = [0, 1, h_max - 1, h_max // 2]
+    idx = sorted({0, h_max - 1, h_max // 2, min(1, h_max - 1)})
     heights = [h for h, _ in shapes]
     ops = merkle.open_indices(tree, idx)
     for op, i in zip(ops, idx):
@@ -147,6 +150,20 @@ def test_merkle_root_and_openings(shapes):
             np.testing.assert_array_equal(a, b)
     assert merkle.verify_openings(tree.root_np(), ops, heights)
     assert ref_merkle.verify_openings(ref_tree.root_np(), ops, heights)
+
+
+@pytest.mark.parametrize("log_h", [1, 4, 11])
+def test_compress_levels(log_h):
+    """Every level above the leaves from one call, against the reference's
+    level loop (`_commit_levels`)."""
+    m = _rand(50 + log_h, (1 << log_h, 3))
+    ref_levels = ref_merkle._commit_levels([m])
+    got = p2.compress_levels(_t(ref_levels[0]), log_h)
+    assert len(got) == log_h
+    for lvl, ref_lvl in zip(got, ref_levels[1:]):
+        _same(lvl, ref_lvl)
+    with pytest.raises(ValueError):
+        p2.compress_levels(_t(ref_levels[0]), log_h + 1)
 
 
 def test_merkle_rejects_bad_openings():

@@ -35,7 +35,7 @@ SIGNATURES = {
     "p2_set_constants": [_P, _P, _P],
     "p2_permute": [_P, _P, _L, _P],
     "p2_hash_rows": [_P, _L, _I, _P, _P],
-    "p2_compress": [_P, _P, _L, _P],
+    "p2_compress": [_P, _L, _I, _P, _P],
     "mont_matmul_rows": [_P, _P, _L, _I, _P, _P],
     "mont_matmul_cols": [_P, _P, _L, _I, _L, _P, _P, _P],
 }

@@ -1,9 +1,19 @@
 // BabyBear field arithmetic for the port's kernels (p = 15 * 2^27 + 1).
 //
 // Values are Montgomery residues (x stored as x * 2^32 mod p) in [0, p),
-// the same bits as the reference's uint32 arrays. The multiply is one
-// 32x32->64 product plus REDC with NP = -p^-1 mod 2^32; its result is the
-// canonical residue, so it agrees bit for bit with any exact reduction.
+// the same bits as the reference's uint32 arrays. Every function that
+// returns a uint32_t returns the canonical residue, so it agrees bit for bit
+// with any exact reduction.
+//
+// The product is a signed Montgomery reduction: one 32x32->64 signed
+// product t = a*b, m = lo(t) * p^-1 mod 2^32, and r = hi(t) - hi(m*p),
+// which is exact (the low words cancel) and lies in (-p, p) whenever
+// |a*b| < p * 2^31. So `smul` needs no correction step, accepts one operand
+// anywhere in int32 if the other lies in (-p, p), and its output can feed
+// the next `smul` directly; `canon` maps (-p, p) to [0, p) with one
+// add-and-min. On Hopper the two wide multiplies (IMAD.WIDE, IMAD.HI) issue
+// at a quarter of the ALU rate and are what bounds Poseidon2; this form
+// adds one ALU op to them where the unsigned REDC added three.
 #pragma once
 
 #include <cstdint>
@@ -17,14 +27,41 @@ constexpr uint32_t NP = 0x77FFFFFFu;  // -p^-1 mod 2^32
 // 2^63 drops it and stays congruent (used by the exact dot products).
 constexpr uint64_t P_FOLD = 9223372035262058766ull;
 
+// s < 2p -> s mod p (unsigned min: s - p wraps above s when s < p)
+__device__ __forceinline__ uint32_t reduce(uint32_t s) { return min(s, s - P); }
+
 __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
-  uint32_t s = a + b;  // < 2p < 2^32
-  return s >= P ? s - P : s;
+  return reduce(a + b);  // a + b < 2p < 2^32
 }
 
 __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
   uint32_t d = a - b;
   return a >= b ? d : d + P;
+}
+
+// (-p, p) -> [0, p): a negative r wraps above r + p
+__device__ __forceinline__ uint32_t canon(int32_t r) {
+  const uint32_t u = static_cast<uint32_t>(r);
+  return min(u, u + P);
+}
+
+// a * b * 2^-32 mod p in (-p, p), for |a * b| < p * 2^31.
+__device__ __forceinline__ int32_t smul(int32_t a, int32_t b) {
+  int32_t r;
+  // PTX, so that the product stays one 32x32 signed IMAD.WIDE: from C the
+  // compiler widens a constant-memory operand and multiplies 64x64.
+  asm("{\n\t.reg .s64 t;\n\t.reg .s32 lo, hi, m, h2;\n\t"
+      "mul.wide.s32 t, %1, %2;\n\t"
+      "mov.b64 {lo, hi}, t;\n\t"
+      "mul.lo.s32 m, lo, 0x88000001;\n\t"  // p^-1 mod 2^32
+      "mul.hi.s32 h2, m, 0x78000001;\n\t"  // hi(m * p)
+      "sub.s32 %0, hi, h2;\n\t}"
+      : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
+  return canon(smul(static_cast<int32_t>(a), static_cast<int32_t>(b)));
 }
 
 // REDC of t < p * 2^32: t * 2^-32 mod p, in [0, p).
@@ -33,10 +70,6 @@ __device__ __forceinline__ uint32_t redc(uint64_t t) {
   uint64_t u = (t + static_cast<uint64_t>(m) * P) >> 32;  // < 2p
   uint32_t r = static_cast<uint32_t>(u);
   return r >= P ? r - P : r;
-}
-
-__device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
-  return redc(static_cast<uint64_t>(a) * b);
 }
 
 // acc += a * b with acc kept below 2^63: each product is below p^2 < 2^62.

@@ -1,23 +1,50 @@
-// Poseidon2 over BabyBear, width 16: permutation, row sponge and 2:1
-// compression, one thread per state.
+// Poseidon2 over BabyBear, width 16: permutation, row sponge and Merkle
+// compression.
 //
 // Replaces: zkvm_prover_tpu/ops/poseidon2.py `permute` (width 16),
-// `hash_rows` and `compress` — the XLA code behind every Merkle leaf layer
-// and level (stark/merkle.py `_commit_levels`) and the proof-of-work nonce
-// batch (stark/challenger.py `grind`).
+// `hash_rows` and `compress`, and the level loop of stark/merkle.py
+// `_commit_levels`: the XLA code behind every Merkle leaf layer and level,
+// and the proof-of-work nonce batch (stark/challenger.py `grind`).
 //
-// Bound: integer multiplies. One permutation is 772 Montgomery products
-// (8 external rounds x 16 lanes x 4 for the x^7 S-box, 13 internal rounds x
-// (4 + 16 for the diagonal)) against 64 bytes in and 32 out, so the card's
-// multiply rate, not its memory, is the limit.
+// Bound: the wide integer multiplies. One permutation is 772 Montgomery
+// products (8 external rounds x 16 lanes x 4 for the x^7 S-box, 13 internal
+// rounds x (4 + 16 for the diagonal)) against 64 bytes in and 32 out, and
+// on Hopper each product's two 32x32->64 halves (IMAD.WIDE, IMAD.HI) issue
+// at a quarter of the ALU rate on the one multiply pipe. So that pipe, not
+// memory, is the limit.
 //
-// Design: the 16 lanes live in registers for the whole permutation; the
-// round constants and the internal diagonal sit in __constant__ memory,
-// where every thread of a warp reads the same word at the same time (one
-// broadcast). `p2_set_constants` copies the tables in; the wrapper calls it
-// at first use and again after `load_constants`. The sponge overwrites the
-// 8 rate lanes with each block of the row (zero-filled past the end), as
-// the reference's padding-free sponge does.
+// Design, shared core (`permute`): one state per thread, the 16 lanes in
+// registers; round constants and the internal diagonal are run-time data in
+// __constant__ memory (one broadcast per warp-uniform read), copied in by
+// `p2_set_constants` at first use and after `load_constants`. The core keeps
+// the multiply pipe for the products: each product is the signed Montgomery
+// form of babybear.cuh (one ALU op besides the three multiplies); the round
+// constant add before an S-box is one 3-input add into (-p, p), which the
+// signed product takes as it is; x^7 = (x^2)^2 * (x^2 * x), depth 3; only
+// the S-box and diagonal outputs are made canonical, with an add-and-min.
+// The internal round sums lanes 1..15 as a tree while lane 0 goes through
+// its S-box. The sums of the external layer are issued as IMAD a*1+b
+// (`add_mp`): the ALU pipe carries the reductions and the internal layer,
+// and the split measured fastest on the card.
+//
+// hash_rows: a CTA owns HR_ROWS rows (one per thread) and walks the columns
+// in chunks of HR_CHUNK words. Each chunk is copied to shared memory with
+// 4-byte cp.async (row starts are only 4-byte aligned: C is often odd) so
+// that consecutive lanes read consecutive words of one row; the copy of
+// chunk k+1 runs while the permutations of chunk k run (two buffers). The
+// row pitch HR_CHUNK + 1 is odd, so the 32 lanes of a warp reading their
+// own rows hit 32 banks. Words past the row end are zero-filled: the sponge
+// overwrites the 8 rate lanes with each block, the last one zero-padded, as
+// the reference's padding-free sponge does. Every width takes this path;
+// a chunk narrower than HR_CHUNK copies only the columns its blocks need.
+//
+// compress: one launch builds up to CP_MAX_LEVELS levels of a tree. A CTA
+// takes 2 * CP_THREADS consecutive digests of the input level; thread t
+// compresses digests 2t and 2t+1, and each level is kept in shared memory
+// for the next, with a barrier between levels, and written to its slice of
+// the output. A level-by-level launch paid a host call per level; a 2^19
+// leaf tree now takes two launches. One level (`compress16`) is the same
+// kernel with levels = 1.
 
 #include "babybear.cuh"
 
@@ -29,15 +56,32 @@ constexpr int ROUNDS_F = 8;
 constexpr int ROUNDS_P = 13;
 constexpr int THREADS = 128;
 
+constexpr int HR_ROWS = 128;
+constexpr int HR_CHUNK = 32;
+constexpr int HR_PITCH = HR_CHUNK + 1;
+
+constexpr int CP_THREADS = 512;
+constexpr int CP_MAX_LEVELS = 10;  // log2(2 * CP_THREADS)
+
 __constant__ uint32_t c_ext[ROUNDS_F * WIDTH];
 __constant__ uint32_t c_int[ROUNDS_P];
 __constant__ uint32_t c_diag[WIDTH];
+__constant__ uint32_t c_one;  // 1, set at run time so the compiler cannot fold it
 
-__device__ __forceinline__ uint32_t sbox(uint32_t x) {
-  const uint32_t x2 = bb::mul(x, x);
-  const uint32_t x4 = bb::mul(x2, x2);
-  const uint32_t x6 = bb::mul(x4, x2);
-  return bb::mul(x6, x);
+// a + b mod p with the sum issued on the multiply pipe as a * 1 + b.
+__device__ __forceinline__ uint32_t add_mp(uint32_t a, uint32_t b) {
+  uint32_t s;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(s) : "r"(a), "r"(c_one), "r"(b));
+  return bb::reduce(s);
+}
+
+// (s + c)^7 for canonical s and c.
+__device__ __forceinline__ uint32_t sbox(uint32_t s, uint32_t c) {
+  const int32_t x = static_cast<int32_t>(s + c - bb::P);  // [-p, p)
+  const int32_t x2 = bb::smul(x, x);
+  const int32_t x3 = bb::smul(x2, x);
+  const int32_t x4 = bb::smul(x2, x2);
+  return bb::canon(bb::smul(x4, x3));
 }
 
 // M_E = circ(2 M4, M4, M4, M4): M4 on each group of 4, then each lane adds
@@ -46,38 +90,46 @@ __device__ __forceinline__ void external_linear(uint32_t s[WIDTH]) {
 #pragma unroll
   for (int g = 0; g < WIDTH; g += 4) {
     const uint32_t a = s[g], b = s[g + 1], c = s[g + 2], d = s[g + 3];
-    const uint32_t t01 = bb::add(a, b);
-    const uint32_t t23 = bb::add(c, d);
-    const uint32_t t0123 = bb::add(t01, t23);
-    const uint32_t t01123 = bb::add(t0123, b);
-    const uint32_t t01233 = bb::add(t0123, d);
-    s[g] = bb::add(t01123, t01);                 // 2a + 3b + c + d
-    s[g + 1] = bb::add(t01123, bb::add(c, c));   // a + 2b + 3c + d
-    s[g + 2] = bb::add(t01233, t23);             // a + b + 2c + 3d
-    s[g + 3] = bb::add(t01233, bb::add(a, a));   // 3a + b + c + 2d
+    const uint32_t t01 = add_mp(a, b);
+    const uint32_t t23 = add_mp(c, d);
+    const uint32_t t0123 = add_mp(t01, t23);
+    const uint32_t t01123 = add_mp(t0123, b);
+    const uint32_t t01233 = add_mp(t0123, d);
+    s[g] = add_mp(t01123, t01);                 // 2a + 3b + c + d
+    s[g + 1] = add_mp(t01123, add_mp(c, c));    // a + 2b + 3c + d
+    s[g + 2] = add_mp(t01233, t23);             // a + b + 2c + 3d
+    s[g + 3] = add_mp(t01233, add_mp(a, a));    // 3a + b + c + 2d
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const uint32_t acc =
-        bb::add(bb::add(s[k], s[4 + k]), bb::add(s[8 + k], s[12 + k]));
+        add_mp(add_mp(s[k], s[4 + k]), add_mp(s[8 + k], s[12 + k]));
 #pragma unroll
-    for (int g = 0; g < WIDTH; g += 4) s[g + k] = bb::add(s[g + k], acc);
+    for (int g = 0; g < WIDTH; g += 4) s[g + k] = add_mp(s[g + k], acc);
   }
-}
-
-// M_I = 1 + diag(v): every lane gets the lane sum plus diag_i * x_i.
-__device__ __forceinline__ void internal_linear(uint32_t s[WIDTH]) {
-  uint32_t sum = s[0];
-#pragma unroll
-  for (int i = 1; i < WIDTH; ++i) sum = bb::add(sum, s[i]);
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = bb::add(sum, bb::mul(c_diag[i], s[i]));
 }
 
 __device__ __forceinline__ void external_round(uint32_t s[WIDTH], int r) {
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = sbox(bb::add(s[i], c_ext[r * WIDTH + i]));
+  for (int i = 0; i < WIDTH; ++i) s[i] = sbox(s[i], c_ext[r * WIDTH + i]);
   external_linear(s);
+}
+
+// S-box on lane 0, then M_I = 1 + diag(v): every lane gets the lane sum
+// plus diag_i * x_i. Lanes 1..15 are summed while lane 0's S-box runs.
+__device__ __forceinline__ void internal_round(uint32_t s[WIDTH], int r) {
+  const uint32_t x0 = sbox(s[0], c_int[r]);
+  uint32_t t[8];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) t[i] = bb::add(s[2 * i + 1], s[2 * i + 2]);
+  t[7] = s[15];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) t[i] = bb::add(t[2 * i], t[2 * i + 1]);
+  const uint32_t sum =
+      bb::add(bb::add(bb::add(t[0], t[1]), bb::add(t[2], t[3])), x0);
+  s[0] = bb::add(sum, bb::mul(c_diag[0], x0));
+#pragma unroll
+  for (int i = 1; i < WIDTH; ++i) s[i] = bb::add(sum, bb::mul(c_diag[i], s[i]));
 }
 
 __device__ void permute(uint32_t s[WIDTH]) {
@@ -85,25 +137,26 @@ __device__ void permute(uint32_t s[WIDTH]) {
 #pragma unroll 1
   for (int r = 0; r < ROUNDS_F / 2; ++r) external_round(s, r);
 #pragma unroll 1
-  for (int r = 0; r < ROUNDS_P; ++r) {
-    s[0] = sbox(bb::add(s[0], c_int[r]));
-    internal_linear(s);
-  }
+  for (int r = 0; r < ROUNDS_P; ++r) internal_round(s, r);
 #pragma unroll 1
   for (int r = ROUNDS_F / 2; r < ROUNDS_F; ++r) external_round(s, r);
 }
 
-__global__ void permute_kernel(const uint32_t* __restrict__ in,
-                               uint32_t* __restrict__ out, int64_t S) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= S) return;
-  uint32_t s[WIDTH];
-  const uint4* src = reinterpret_cast<const uint4*>(in + t * WIDTH);
+__device__ __forceinline__ void load16(uint32_t s[WIDTH], const uint4* src) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const uint4 v = src[q];
     s[4 * q] = v.x; s[4 * q + 1] = v.y; s[4 * q + 2] = v.z; s[4 * q + 3] = v.w;
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+permute_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+               int64_t S) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= S) return;
+  uint32_t s[WIDTH];
+  load16(s, reinterpret_cast<const uint4*>(in + t * WIDTH));
   permute(s);
   uint4* dst = reinterpret_cast<uint4*>(out + t * WIDTH);
 #pragma unroll
@@ -111,48 +164,113 @@ __global__ void permute_kernel(const uint32_t* __restrict__ in,
     dst[q] = make_uint4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
 }
 
-__global__ void hash_rows_kernel(const uint32_t* __restrict__ mat, int64_t S,
-                                 int C, uint32_t* __restrict__ out) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= S) return;
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// Columns [col0, col0 + 2^lg) of the CTA's rows into `tile` (row r at
+// r * HR_PITCH), as one cp.async group; words past the matrix become 0.
+__device__ __forceinline__ void stage_chunk(uint32_t* tile, const uint32_t* mat,
+                                            int64_t S, int C, int64_t row0,
+                                            int col0, int lg) {
+  const int mask = (1 << lg) - 1;
+  for (int e = threadIdx.x; e < (HR_ROWS << lg); e += HR_ROWS) {
+    const int r = e >> lg;
+    const int col = col0 + (e & mask);
+    const int64_t row = row0 + r;
+    uint32_t* dst = tile + r * HR_PITCH + (e & mask);
+    if (row < S && col < C)
+      cp_async4(dst, mat + row * C + col);
+    else
+      *dst = 0u;
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// log2 of the staged width of chunk k: its blocks' columns, rounded up to
+// 8, 16 or HR_CHUNK.
+__device__ __forceinline__ int chunk_lg(int n_blocks, int k) {
+  const int need = min(HR_CHUNK, (n_blocks - k * (HR_CHUNK / RATE)) * RATE);
+  return need <= 8 ? 3 : need <= 16 ? 4 : 5;
+}
+
+__global__ void __launch_bounds__(HR_ROWS)
+hash_rows_kernel(const uint32_t* __restrict__ mat, int64_t S, int C,
+                 uint32_t* __restrict__ out) {
+  __shared__ uint32_t tiles[2][HR_ROWS * HR_PITCH];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * HR_ROWS;
+  const int n_blocks = C > 0 ? (C + RATE - 1) / RATE : 1;
+  const int n_chunks = (n_blocks * RATE + HR_CHUNK - 1) / HR_CHUNK;
+  stage_chunk(tiles[0], mat, S, C, row0, 0, chunk_lg(n_blocks, 0));
   uint32_t s[WIDTH];
 #pragma unroll
   for (int i = 0; i < WIDTH; ++i) s[i] = 0u;
-  const uint32_t* row = mat + t * C;
-  const int blocks = C > 0 ? (C + RATE - 1) / RATE : 1;
-  for (int b = 0; b < blocks; ++b) {
-#pragma unroll
-    for (int i = 0; i < RATE; ++i) {
-      const int c = b * RATE + i;
-      s[i] = c < C ? row[c] : 0u;
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) {
+      // buffer (k+1)&1 was last read in step k-1, which ended in a barrier
+      stage_chunk(tiles[(k + 1) & 1], mat, S, C, row0, (k + 1) * HR_CHUNK,
+                  chunk_lg(n_blocks, k + 1));
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
     }
-    permute(s);
-  }
-  uint4* dst = reinterpret_cast<uint4*>(out + t * RATE);
-  dst[0] = make_uint4(s[0], s[1], s[2], s[3]);
-  dst[1] = make_uint4(s[4], s[5], s[6], s[7]);
-}
-
-// in: S rows of left || right (16 words); out: S digests of 8 words.
-__global__ void compress_kernel(const uint32_t* __restrict__ in,
-                                uint32_t* __restrict__ out, int64_t S) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= S) return;
-  uint32_t s[WIDTH];
-  const uint4* src = reinterpret_cast<const uint4*>(in + t * WIDTH);
+    __syncthreads();
+    const uint32_t* row = tiles[k & 1] + threadIdx.x * HR_PITCH;
+    const int nb = min(HR_CHUNK / RATE, n_blocks - k * (HR_CHUNK / RATE));
+    for (int b = 0; b < nb; ++b) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint4 v = src[q];
-    s[4 * q] = v.x; s[4 * q + 1] = v.y; s[4 * q + 2] = v.z; s[4 * q + 3] = v.w;
+      for (int i = 0; i < RATE; ++i) s[i] = row[b * RATE + i];
+      permute(s);
+    }
+    __syncthreads();
   }
-  permute(s);
-  uint4* dst = reinterpret_cast<uint4*>(out + t * RATE);
-  dst[0] = make_uint4(s[0], s[1], s[2], s[3]);
-  dst[1] = make_uint4(s[4], s[5], s[6], s[7]);
+  const int64_t t = row0 + threadIdx.x;
+  if (t < S) {
+    uint4* dst = reinterpret_cast<uint4*>(out + t * RATE);
+    dst[0] = make_uint4(s[0], s[1], s[2], s[3]);
+    dst[1] = make_uint4(s[4], s[5], s[6], s[7]);
+  }
 }
 
-unsigned blocks_for(int64_t S) {
-  return static_cast<unsigned>((S + THREADS - 1) / THREADS);
+// in: n_in digests of 8 words; out: `levels` levels back to back, level j
+// (1-based) holding n_in >> j digests, D_j[i] = compress(D_{j-1}[2i],
+// D_{j-1}[2i+1]). n_in is a multiple of 2^levels.
+__global__ void __launch_bounds__(CP_THREADS)
+compress_kernel(const uint32_t* __restrict__ in, int64_t n_in, int levels,
+                uint32_t* __restrict__ out) {
+  __shared__ uint4 level[2 * CP_THREADS];  // this CTA's digests, 2 x uint4 each
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * (2 * CP_THREADS);
+  const int span = static_cast<int>(
+      n_in - base < 2 * CP_THREADS ? n_in - base : 2 * CP_THREADS);
+  const int t = threadIdx.x;
+  int64_t off = 0;  // first digest of level j in `out`
+  for (int j = 1; j <= levels; ++j) {
+    const int m = span >> j;
+    uint32_t s[WIDTH];
+    if (t < m) {
+      load16(s, j == 1 ? reinterpret_cast<const uint4*>(in + (base + 2 * t) * RATE)
+                       : &level[4 * t]);
+      permute(s);
+    }
+    __syncthreads();  // the previous level is read before it is overwritten
+    if (t < m) {
+      const uint4 lo = make_uint4(s[0], s[1], s[2], s[3]);
+      const uint4 hi = make_uint4(s[4], s[5], s[6], s[7]);
+      level[2 * t] = lo;
+      level[2 * t + 1] = hi;
+      uint4* dst = reinterpret_cast<uint4*>(out + (off + (base >> j) + t) * RATE);
+      dst[0] = lo;
+      dst[1] = hi;
+    }
+    __syncthreads();
+    off += n_in >> j;
+  }
+}
+
+unsigned blocks_for(int64_t n, int per_block) {
+  return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
 }  // namespace
@@ -160,7 +278,9 @@ unsigned blocks_for(int64_t S) {
 // Host tables (Montgomery form): external (8, 16), internal (13,), diag (16,).
 extern "C" int p2_set_constants(const uint32_t* ext, const uint32_t* internal,
                                 const uint32_t* diag) {
-  cudaError_t e = cudaMemcpyToSymbol(c_ext, ext, sizeof(c_ext));
+  const uint32_t one = 1;
+  cudaError_t e = cudaMemcpyToSymbol(c_one, &one, sizeof(c_one));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_ext, ext, sizeof(c_ext));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_int, internal, sizeof(c_int));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_diag, diag, sizeof(c_diag));
   return static_cast<int>(e);
@@ -168,21 +288,24 @@ extern "C" int p2_set_constants(const uint32_t* ext, const uint32_t* internal,
 
 extern "C" int p2_permute(const uint32_t* in, uint32_t* out, int64_t S,
                           void* stream) {
-  permute_kernel<<<blocks_for(S), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, out, S);
+  permute_kernel<<<blocks_for(S, THREADS), THREADS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(in, out, S);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int p2_hash_rows(const uint32_t* mat, int64_t S, int C,
                             uint32_t* out, void* stream) {
-  hash_rows_kernel<<<blocks_for(S), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      mat, S, C, out);
+  hash_rows_kernel<<<blocks_for(S, HR_ROWS), HR_ROWS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(mat, S, C, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int p2_compress(const uint32_t* in, uint32_t* out, int64_t S,
-                           void* stream) {
-  compress_kernel<<<blocks_for(S), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, out, S);
+extern "C" int p2_compress(const uint32_t* in, int64_t n_in, int levels,
+                           uint32_t* out, void* stream) {
+  if (levels < 1 || levels > CP_MAX_LEVELS || n_in <= 0 ||
+      n_in % (int64_t{1} << levels))
+    return static_cast<int>(cudaErrorInvalidValue);
+  compress_kernel<<<blocks_for(n_in, 2 * CP_THREADS), CP_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(in, n_in, levels, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,10 @@ rounds use M_E = circ(2 M4, M4, ...), internal rounds M_I = I + diag(v),
 S-box x^7; 8 external rounds, 13 internal (width 16) or 21 (width 24).
 
 Kernel K2 (`csrc/poseidon2.cu`) runs the width-16 permutation, the row
-sponge (`hash_rows`) and the 2:1 compression for CUDA tensors; a CPU tensor
-takes the plain torch version. Width 24 is off the proving path and has no
-kernel yet: it runs on CPU tensors only.
+sponge (`hash_rows`) and the 2:1 compression for CUDA tensors, the latter
+several Merkle levels per launch (`compress_levels`); a CPU tensor takes the
+plain torch version. Width 24 is off the proving path and has no kernel yet:
+it runs on CPU tensors only.
 
 The host side (challenger, verifier) uses the numpy permutation
 (`permute_np`).
@@ -219,6 +220,14 @@ def compress_plain(left, right):
     return permute_plain(torch.cat([left, right], dim=-1))[..., :DIGEST]
 
 
+def compress_levels_plain(digests, n_levels):
+    out = []
+    for _ in range(n_levels):
+        digests = compress_plain(digests[0::2], digests[1::2])
+        out.append(digests)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers (K2)
 # ---------------------------------------------------------------------------
@@ -292,20 +301,42 @@ def hash_rows(matrix):
     return out
 
 
+# levels one compress launch builds (csrc/poseidon2.cu CP_MAX_LEVELS)
+LEVELS_PER_LAUNCH = 10
+
+
+def compress_levels(digests, n_levels):
+    """Merkle levels over (s, 8) digests: [(s/2, 8), ..., (s/2^n, 8)], level
+    j's row i the compression of level j-1's rows 2i and 2i+1. On the card
+    up to LEVELS_PER_LAUNCH levels per launch, every level a view of one
+    buffer."""
+    _check(digests, DIGEST, aligned=True)
+    s = digests.shape[0]
+    if n_levels < 1 or s % (1 << n_levels):
+        raise ValueError(f"{s} digests do not make {n_levels} levels")
+    if digests.device.type == "cpu":
+        return compress_levels_plain(digests, n_levels)
+    sizes = [s >> j for j in range(1, n_levels + 1)]
+    buf = torch.empty((sum(sizes), DIGEST), dtype=bb.DTYPE, device=digests.device)
+    levels = list(torch.split(buf, sizes))
+    if s:
+        lib = _lib_for(digests.device)
+        src = digests
+        for j in range(0, n_levels, LEVELS_PER_LAUNCH):
+            n = min(LEVELS_PER_LAUNCH, n_levels - j)
+            _build.check(lib.p2_compress(src.data_ptr(), src.shape[0], n,
+                                         levels[j].data_ptr(),
+                                         _build.stream(digests.device)),
+                         "p2_compress")
+            launches["poseidon2_compress"] += 1
+            src = levels[j + n - 1]
+    return levels
+
+
 def compress16(pairs):
     """(S, 16) rows of left || right -> (S, 8) truncated permutations."""
     _check(pairs, 2 * DIGEST, aligned=True)
-    if pairs.device.type == "cpu":
-        return permute_plain(pairs)[:, :DIGEST]
-    s = pairs.shape[0]
-    out = torch.empty((s, DIGEST), dtype=bb.DTYPE, device=pairs.device)
-    if s:
-        lib = _lib_for(pairs.device)
-        _build.check(lib.p2_compress(pairs.data_ptr(), out.data_ptr(), s,
-                                     _build.stream(pairs.device)),
-                     "p2_compress")
-        launches["poseidon2_compress"] += 1
-    return out
+    return compress_levels(pairs.reshape(-1, DIGEST), 1)[0]
 
 
 def compress(left, right):

@@ -1,8 +1,9 @@
 """Mixed-height Merkle commitment (MMCS) with Poseidon2, on tensors.
 
-The reference's `zkvm_prover_tpu/stark/merkle.py`: every level is one
-batched compression over an (s, 8) digest matrix and leaf layers are batched
-row sponges (kernel K2 on the card).
+The reference's `zkvm_prover_tpu/stark/merkle.py`: leaf layers are batched
+row sponges and the levels between two heights at which matrices join are
+built by one `compress_levels` call (kernel K2 on the card, up to ten levels
+per launch).
 
   - matrices: (h_i, w_i) int32 (Montgomery), h_i powers of two, h_max = max.
   - leaf level: D = hash_rows(the height-h_max rows, concatenated).
@@ -57,16 +58,15 @@ def commit(matrices: Sequence[torch.Tensor]) -> MerkleTree:
         if h & (h - 1) or h == 0:
             raise ValueError("matrix heights must be powers of two")
         by_height.setdefault(h, []).append(m)
-    h_max = max(by_height)
-    d = _rows_digest(by_height[h_max])
+    heights = sorted(set(by_height) | {1}, reverse=True)
+    d = _rows_digest(by_height[heights[0]])
     levels = [d]
-    s = h_max
-    while s > 1:
-        s //= 2
-        d = p2.compress16(d.reshape(s, 2 * DIGEST))
+    s = heights[0]
+    for stop in heights[1:]:  # each height below h_max that joins, then 1
+        levels += p2.compress_levels(d, (s // stop).bit_length() - 1)
+        d, s = levels[-1], stop
         if s in by_height:
-            d = p2.compress(d, _rows_digest(by_height[s]))
-        levels.append(d)
+            d = levels[-1] = p2.compress(d, _rows_digest(by_height[s]))
     return MerkleTree(matrices=list(matrices), levels=levels)
 
 
