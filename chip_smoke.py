@@ -10,15 +10,19 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      (zkvm_prover_tpu_torch/kernel_report.py);
   2. every kernel against its plain torch version on the card, at the
      shapes the main path gives it: mismatches (must be 0), time per launch
-     (CUDA events), the plain version's time and the bound;
+     (CUDA events), the plain version's time and the bound; K1 per pass,
+     per whole transform and as the fused coset LDE (interpolation plus two
+     cosets), each with the bound of that whole function;
   3. the main path: a Poseidon2Air trace of 2^log_n rows x 495 columns from
      --seed, proven on cuda at default_config() (100 queries, 16 PoW bits,
      blowup 2) with the launch counts zeroed just before and read just
      after; per-phase wall-clock, peak memory, verify (True) and a tampered
      proof (False); then a second (warm) proof, and a third under
      torch.profiler: device ms and launches per kernel and per shape, the
-     device's idle share over the proof, and at most 3 compress launches
-     per Merkle tree;
+     device's idle share over the proof, the plain torch kernels that run
+     in the LDE (from the proof's start to its first row hash), at most 3
+     compress launches per Merkle tree and at most 2 K1 launches per
+     transform;
   4. cross-device identity: a 2^10-row proof at fast_test_config() on cuda
      and on cpu, equal in every field but `stat`;
   5. the kernels line (JSON), the card line, and last the result line.
@@ -46,8 +50,8 @@ MODMULS_PER_PERM = 772        # Poseidon2-16: 8*16*4 (S-box) + 13*(4 + 16)
 
 # C entry point -> (launch counter, shape from the scalar arguments)
 ENTRY_SHAPES = {
-    "ntt_block": ("ntt_block", lambda a: f"n={a[2]} W={a[3]} k={a[4]}"),
-    "ntt_stage": ("ntt_stage", lambda a: f"n={a[2]} W={a[3]}"),
+    "ntt_pass": ("ntt_pass", lambda a: f"n={a[4]} W={a[5]} a={a[6]} L={a[7]}"
+                 f"{' dit' if a[8] else ''}{'' if a[3] == a[5] else f' ld_y={a[3]}'}"),
     "p2_permute": ("poseidon2_permute", lambda a: f"({a[2]},16)"),
     "p2_hash_rows": ("poseidon2_hash_rows", lambda a: f"({a[1]},{a[2]})"),
     "p2_compress": ("poseidon2_compress", lambda a: f"{a[1]} digests, {a[2]} levels"),
@@ -106,57 +110,82 @@ def check_kernels(log_n: int, width: int, seed: int):
     """Phase 2: each kernel vs its plain version at the main path's shapes."""
     import torch
 
+    from zkvm_prover_tpu_torch.fields import babybear as bb
     from zkvm_prover_tpu_torch.ops import mont_matmul as mm
-    from zkvm_prover_tpu_torch.ops import ntt_fused
+    from zkvm_prover_tpu_torch.ops import ntt, ntt_fused
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed)
     n, m = 1 << log_n, 2 << log_n
-    k = min(ntt_fused.K_MAX, log_n)
     rows = []
 
-    def record(name, source, replaces, shape, err, ms, plain_ms, nbytes, muls):
+    def record(name, source, replaces, shape, err, ms, plain_ms, nbytes, muls,
+               counter=None):
         b_ms, b_by = bound_ms(nbytes, muls)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "shape": shape, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None, "bytes": nbytes})
+                     "bound_by": b_by, "library_ms": None, "bytes": nbytes,
+                     "counter": counter or name})
         print(f"  {name:20s} {shape:28s} err={err} ms={ms:.4f} "
               f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
 
     src_ntt = "zkvm_prover_tpu_torch/csrc/ntt.cu"
+    rep_ntt = "zkvm_prover_tpu/ops/ntt_pallas.py:66"
+    sizes = ntt_fused.pass_sizes(log_n)
     for w in (width, 4):
         x = random_field(gen, (n, w), dev)
-        for inverse in (True, False):
-            for dit in (False, True):
-                got = ntt_fused.dit(x, log_n, inverse) if dit else \
-                    ntt_fused.dif(x, log_n, inverse)
-                want = (ntt_fused.dit_plain if dit else ntt_fused.dif_plain)(
-                    x, log_n, inverse)
-                err = max_err(got, want)
-                tag = f"({n},{w}) {'dit' if dit else 'dif'}{' inv' if inverse else ''}"
-                ms = time_ms(lambda: ntt_fused.block_stages(x, k, inverse, dit))
-                plain_ms = time_ms(lambda: ntt_fused.block_stages_plain(
-                    x, k, inverse, dit), reps=1, warmup=False)
-                record("ntt_block", src_ntt, "zkvm_prover_tpu/ops/ntt_pallas.py:66",
-                       tag, err, ms, plain_ms,
-                       2 * n * w * 4 + (1 << k) * 4,
-                       k * (n // 2) * w * MULS_PER_MODMUL)
-                if log_n > k:
-                    s = log_n
-                    got = ntt_fused.wide_stage(x, s, log_n, inverse, dit)
-                    want = ntt_fused.wide_stage_plain(x, s, log_n, inverse, dit)
-                    ms = time_ms(lambda: ntt_fused.wide_stage(x, s, log_n, inverse, dit))
-                    plain_ms = time_ms(lambda: ntt_fused.wide_stage_plain(
-                        x, s, log_n, inverse, dit), reps=1, warmup=False)
-                    record("ntt_stage", src_ntt, "zkvm_prover_tpu/ops/ntt_pallas.py:89",
-                           tag, max_err(got, want), ms, plain_ms,
-                           2 * n * w * 4 + (n // 2) * 4,
-                           (n // 2) * w * MULS_PER_MODMUL)
+        # whole transforms: the LDE's inverse DIF and forward DIT
+        for inverse, dit in ((True, False), (False, True)):
+            fn, plain = (ntt_fused.dit, ntt_fused.dit_plain) if dit else \
+                (ntt_fused.dif, ntt_fused.dif_plain)
+            err = max_err(fn(x, log_n, inverse), plain(x, log_n, inverse))
+            record("ntt_transform", src_ntt, rep_ntt,
+                   f"({n},{w}) {'dit' if dit else 'dif inv'}, {len(sizes)} passes",
+                   err, time_ms(lambda: fn(x, log_n, inverse)),
+                   time_ms(lambda: plain(x, log_n, inverse), reps=1, warmup=False),
+                   2 * n * w * 4 + n * 4, log_n * (n // 2) * w * MULS_PER_MODMUL,
+                   counter="ntt_pass")
+        # each pass of the inverse DIF alone
+        a = log_n
+        for L in sizes:
+            a -= L
+            err = max_err(ntt_fused.ntt_pass(x, a, L, True),
+                          ntt_fused.ntt_pass_plain(x, a, L, True))
+            record("ntt_pass", src_ntt, rep_ntt, f"({n},{w}) dif inv a={a} L={L}", err,
+                   time_ms(lambda: ntt_fused.ntt_pass(x, a, L, True)),
+                   time_ms(lambda: ntt_fused.ntt_pass_plain(x, a, L, True),
+                           reps=1, warmup=False),
+                   2 * n * w * 4 + (1 << (a + L)) * 4,
+                   L * (n // 2) * w * MULS_PER_MODMUL)
         del x
+
+    # the fused LDE as the prover runs it: canonical trace -> c_rev -> 2 cosets
+    x = random_field(gen, (n, width), dev)
+    shift = bb.GENERATOR
+
+    def lde():
+        c = ntt.interpolate_coset_rev(x, 1, canonical=True)
+        return ntt.eval_coset_from_rev(c, 1, shift)
+
+    def lde_plain():
+        c = bb.mul(ntt_fused.dif_plain(bb.to_monty(x), log_n, True),
+                   ntt.n_inv_monty(log_n))
+        w_m = bb.two_adic_generator_int(log_n + 1)
+        cosets = [ntt_fused.dit_plain(bb.mul(c, ntt.powers_bitrev(
+            shift * pow(w_m, r, bb.P) % bb.P, log_n, dev)[:, None]), log_n, False)
+                  for r in range(2)]
+        return torch.stack(cosets, dim=1).reshape(2 * n, width)
+
+    record("ntt_lde", src_ntt, rep_ntt, f"({n},{width}) -> ({m},{width})",
+           max_err(lde(), lde_plain()), time_ms(lde),
+           time_ms(lde_plain, reps=1, warmup=False), 4 * n * width * 4 + 3 * n * 4,
+           (3 * log_n * (n // 2) + 3 * n) * width * MULS_PER_MODMUL, counter="ntt_pass")
+    del x
+    torch.cuda.empty_cache()
 
     src_p2 = "zkvm_prover_tpu_torch/csrc/poseidon2.cu"
     # the trace, the quotient chunks and the largest FRI codeword
@@ -221,6 +250,8 @@ def check_kernels(log_n: int, width: int, seed: int):
 
 
 def launch_counts():
+    """Kernel launches by counter (K1's whole transforms are not launches:
+    they are read from `ntt_fused.transforms`)."""
     from zkvm_prover_tpu_torch.ops import mont_matmul as mm
     from zkvm_prover_tpu_torch.ops import ntt_fused
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
@@ -233,7 +264,7 @@ def reset_counts():
     from zkvm_prover_tpu_torch.ops import ntt_fused
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
 
-    for d in (ntt_fused.launches, p2.launches, mm.launches):
+    for d in (ntt_fused.launches, ntt_fused.transforms, p2.launches, mm.launches):
         for key in d:
             d[key] = 0
 
@@ -310,6 +341,16 @@ def profile_proof(prove, trace_path: str) -> dict:
                    shape)
             per_shape[key][0] += 1
             per_shape[key][1] += e["dur"] / 1e3
+    # the LDE: from the proof's start to the first row hash (the trace commit)
+    t_hash = next((e["ts"] for e in mine if "hash_rows_kernel" in e["name"]), w1)
+    lde = collections.defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        if w0 <= e["ts"] < t_hash:
+            name = short_name(e["name"]) if e["cat"] == "kernel" else e["cat"]
+            if e["cat"] == "kernel" and name.split("<")[0] not in ours:
+                name = "plain torch: " + e["name"][:60]
+            lde[name][0] += 1
+            lde[name][1] += e["dur"] / 1e3
     trees = []
     for entry, _ in calls:
         if entry == "p2_hash_rows":
@@ -324,7 +365,8 @@ def profile_proof(prove, trace_path: str) -> dict:
             "per_shape": [{"kernel": k, "shape": sh, "launches": n, "ms": ms}
                           for (k, sh), (n, ms) in sorted(per_shape.items(),
                                                          key=lambda kv: -kv[1][1])],
-            "compress_launches_per_tree": trees}
+            "compress_launches_per_tree": trees,
+            "lde_window": {k: {"launches": n, "ms": ms} for k, (n, ms) in lde.items()}}
 
 
 def poseidon2_trace(log_n: int, seed: int):
@@ -380,6 +422,7 @@ def main() -> int:
         return 2
 
     from zkvm_prover_tpu_torch import _build, kernel_report
+    from zkvm_prover_tpu_torch.ops import ntt_fused
     from zkvm_prover_tpu_torch.models.poseidon2_air import NUM_COLS, Poseidon2Air
     from zkvm_prover_tpu_torch.stark import prover, verifier
     from zkvm_prover_tpu_torch.stark.config import default_config, fast_test_config
@@ -430,6 +473,7 @@ def main() -> int:
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     counts = launch_counts()
+    n_transforms = sum(ntt_fused.transforms.values())
     peak = torch.cuda.max_memory_allocated()
     print(f"[3] proved in {prove_s:.3f} s, peak {peak / 2**30:.2f} GiB", flush=True)
     for key, val in proof.stat.items():
@@ -439,6 +483,10 @@ def main() -> int:
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    print(f"[3] K1: {counts['ntt_pass']} launches for {n_transforms} transforms "
+          f"({ntt_fused.transforms})", flush=True)
+    if args.log_n <= 2 * ntt_fused.K_MAX and counts["ntt_pass"] > 2 * n_transforms:
+        raise AssertionError("a transform took more than 2 K1 launches")
     t0 = time.perf_counter()
     ok = verifier.verify(air, proof, cfg)
     verify_s = time.perf_counter() - t0
@@ -451,7 +499,7 @@ def main() -> int:
         raise AssertionError("verification phase failed")
     report.update(prove_s=prove_s, verify_s=verify_s, peak_bytes=peak,
                   phases_ms={k: v for k, v in proof.stat.items() if k.endswith("_ms")},
-                  launches=counts)
+                  launches=counts, transforms=dict(ntt_fused.transforms))
     del proof, bad
 
     # the same proof again in this process (warm), then once more profiled
@@ -475,6 +523,12 @@ def main() -> int:
     for row in prof["per_shape"]:
         print(f"      {row['kernel']:24s} {row['shape']:26s} launches {row['launches']:4d}"
               f"  device ms {row['ms']:8.3f}")
+    print("[3] device work in the LDE (proof start to the first row hash):")
+    for name, row in prof["lde_window"].items():
+        print(f"      {name:60s} launches {row['launches']:4d}  device ms {row['ms']:8.3f}")
+    plain_lde = sum(r["ms"] for k, r in prof["lde_window"].items()
+                    if k.startswith("plain torch"))
+    print(f"[3] plain torch device ms in the LDE: {plain_lde:.3f}", flush=True)
     per_tree = prof["compress_launches_per_tree"]
     print(f"[3] compress launches per Merkle tree: {per_tree}", flush=True)
     if not per_tree or max(per_tree) > 3:
@@ -501,7 +555,7 @@ def main() -> int:
     for name, row in kernels.items():
         entry = {key: row[key] for key in (
             "name", "route", "source", "replaces")}
-        entry.update(launches=counts[name],
+        entry.update(launches=counts[row["counter"]],
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                      bound_by=row["bound_by"], library_ms=None,

@@ -42,15 +42,78 @@ def _same(a, b):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_ntt_kernels(cuda, log_n, w, inverse):
     x = _rand(log_n + w, (1 << log_n, w), cuda)
-    before = dict(ntt_fused.launches)
+    before = ntt_fused.launches["ntt_pass"]
     _same(ntt_fused.dif(x, log_n, inverse), ntt_fused.dif_plain(x, log_n, inverse))
     _same(ntt_fused.dit(x, log_n, inverse), ntt_fused.dit_plain(x, log_n, inverse))
-    assert ntt_fused.launches["ntt_block"] == before["ntt_block"] + 2
+    passes = len(ntt_fused.pass_sizes(log_n))
+    assert passes == (2 if log_n > ntt_fused.K_MAX else 1)
+    assert ntt_fused.launches["ntt_pass"] == before + 2 * passes
 
 
-def test_coset_lde_cuda_equals_cpu(cuda):
-    x = _rand(3, (1 << 11, 33), cuda)
-    _same(ntt.coset_lde(x, 1), ntt.coset_lde(x.cpu(), 1))
+@pytest.mark.parametrize("log_n,k,passes", [(9, 9, 1), (10, 5, 2), (12, 4, 3), (7, 3, 3)])
+@pytest.mark.parametrize("w", [1, 4, 31, 33, 495])
+@pytest.mark.parametrize("dit", [False, True])
+def test_ntt_pass_groupings(cuda, log_n, k, passes, w, dit):
+    """1, 2 and 3 passes per transform (forced with k), the ragged column
+    tile (W = 1, 31, 33, 495) and the narrow packed tile (W = 4)."""
+    x = _rand(log_n * w + k, (1 << log_n, w), cuda)
+    before = ntt_fused.launches["ntt_pass"]
+    fn, plain = (ntt_fused.dit, ntt_fused.dit_plain) if dit else \
+        (ntt_fused.dif, ntt_fused.dif_plain)
+    for inverse in (False, True):
+        _same(fn(x, log_n, inverse, k=k), plain(x, log_n, inverse))
+    assert ntt_fused.launches["ntt_pass"] == before + 2 * passes
+
+
+@pytest.mark.parametrize("a,L", [(0, 10), (0, 1), (3, 5), (8, 4), (11, 1)])
+@pytest.mark.parametrize("w", [1, 4, 16, 17, 40])
+@pytest.mark.parametrize("dit", [False, True])
+def test_ntt_pass_multipliers_in_place(cuda, a, L, w, dit):
+    """One pass with both per-row multipliers, run in place."""
+    n = 1 << 12
+    x = _rand(a * 31 + L + w, (n, w), cuda)
+    pre, post = _rand(1, (n,), cuda), _rand(2, (n,), cuda)
+    want = ntt_fused.ntt_pass_plain(x, a, L, True, dit, pre, post)
+    y = x.clone()
+    assert ntt_fused.ntt_pass(y, a, L, True, dit, pre, post, out=y) is y
+    _same(y, want)
+
+
+def test_ntt_pass_strided_views(cuda):
+    """Input rows r::2 of a wider matrix, output into a column block of
+    rows r::2 of another: pitches other than W on both sides."""
+    n = 1 << 11
+    src = _rand(5, (2 * n, 12), cuda)
+    dst = torch.zeros((2 * n, 20), dtype=bb.DTYPE, device=cuda)
+    x = src[1::2, 3:10]
+    ntt_fused.dif(x, 11, False, k=6, out=dst[1::2, 5:12])
+    _same(dst[1::2, 5:12], ntt_fused.dif_plain(x, 11, False))
+    assert not dst[0::2].any() and not dst[:, :5].any() and not dst[:, 12:].any()
+
+
+@pytest.mark.parametrize("w", [1, 4, 33, 495])
+def test_coset_lde_cuda_equals_cpu(cuda, w):
+    """The fused LDE (scalings on the passes, cosets stored interleaved)."""
+    x = _rand(3 + w, (1 << 11, w), cuda)
+    before = ntt_fused.launches["ntt_pass"]
+    _same(ntt.coset_lde(x, 1, 31, 7), ntt.coset_lde(x.cpu(), 1, 31, 7))
+    assert ntt_fused.launches["ntt_pass"] == before + 3 * 2  # 3 transforms, k = 10
+    _same(ntt.interpolate_coset_rev(x, 7, canonical=True),
+          ntt.interpolate_coset_rev(x.cpu(), 7, canonical=True))
+
+
+def test_chunk_lde_strided_cuda_equals_cpu(cuda):
+    """The prover's quotient chunks: strided input, column-block output."""
+    n = 1 << 12
+    q = _rand(8, (2 * n, 4), cuda)
+    outs = []
+    for dev in (cuda, "cpu"):
+        out = torch.zeros((2 * n, 8), dtype=bb.DTYPE, device=dev)
+        for r in range(2):
+            c = ntt.interpolate_coset_rev(q.to(dev)[r::2], 31 * (r + 2))
+            ntt.eval_coset_from_rev(c, 1, 31, out=out[:, 4 * r:4 * r + 4])
+        outs.append(out)
+    _same(*outs)
 
 
 @pytest.mark.parametrize("rows", [1, 127, 129, 4097])

@@ -8,6 +8,7 @@ four-step threshold. Every comparison is exact equality."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from zkvm_prover_tpu.fields import babybear as ref_bb
 from zkvm_prover_tpu.ops import ntt as ref_ntt
@@ -84,6 +85,60 @@ def test_block_plus_wide_stages_equal_full_transform(k, dit):
     _same(got, ref(x, log_n, False))
 
 
+@pytest.mark.parametrize("log_n,k", [(8, 3), (8, 1), (7, 4), (9, 9)])
+@pytest.mark.parametrize("w", [1, 33, 40])
+@pytest.mark.parametrize("dit", [False, True])
+def test_pass_groupings_equal_reference(log_n, k, w, dit):
+    """ceil(log_n / k) passes of at most k stages (three at log_n = 8,
+    k = 3) compose to the reference's whole transform."""
+    x = _rand(log_n * 7 + k + w, (1 << log_n, w))
+    sizes = ntt_fused.pass_sizes(log_n, k)
+    assert sum(sizes) == log_n and len(sizes) == -(-log_n // k)
+    assert max(sizes) - min(sizes) <= 1
+    for inverse in (False, True):
+        ref = ref_ntt._dit if dit else ref_ntt._dif
+        got = (ntt_fused.dit if dit else ntt_fused.dif)(_t(x), log_n, inverse, k=k)
+        _same(got, ref(x, log_n, inverse))
+
+
+def test_pass_sizes_at_the_main_path():
+    assert ntt_fused.pass_sizes(18) == [9, 9]
+    assert ntt_fused.pass_sizes(20) == [10, 10]
+    assert ntt_fused.pass_sizes(5) == [5]
+    with pytest.raises(ValueError):
+        ntt_fused.pass_sizes(18, ntt_fused.K_MAX + 1)
+
+
+@pytest.mark.parametrize("a,L", [(0, 3), (2, 3), (5, 2), (4, 4)])
+@pytest.mark.parametrize("dit", [False, True])
+def test_one_pass_with_multipliers(a, L, dit):
+    """One pass with both per-row multipliers, into a row-strided output,
+    is the reference's stages between bb.mul of the two tables."""
+    log_n, w = 8, 6
+    x = _rand(a * 10 + L, (1 << log_n, w))
+    pre, post = _rand(1, (1 << log_n,)), _rand(2, (1 << log_n,))
+    want = ref_bb.mul(x, pre[:, None])
+    tw = ref_ntt._stage_twiddles(log_n, False)
+    for s in (range(a + 1, a + L + 1) if dit else range(a + L, a, -1)):
+        h = 1 << (s - 1)
+        v = want.reshape(-1, 2, h, w)
+        lo, hi = v[:, 0], v[:, 1]
+        t = tw[s - 1].reshape(1, h, 1)
+        if dit:
+            hi = ref_bb.mul(hi, t)
+            want = np.stack([ref_bb.add(lo, hi), ref_bb.sub(lo, hi)], 1)
+        else:
+            want = np.stack([ref_bb.add(lo, hi), ref_bb.mul(ref_bb.sub(lo, hi), t)], 1)
+        want = want.reshape(1 << log_n, w)
+    want = ref_bb.mul(want, post[:, None])
+    out = bb.as_tensor(np.zeros((1 << log_n, 2 * w), np.uint32), "cpu")
+    got = ntt_fused.ntt_pass(_t(x), a, L, dit=dit, pre=_t(pre), post=_t(post),
+                             out=out[:, 1:1 + w])
+    assert got.data_ptr() == out[:, 1:].data_ptr()
+    _same(out[:, 1:1 + w], want)
+    assert not out[:, 0].any() and not out[:, 1 + w:].any()
+
+
 # --- transforms against ops/ntt.py --------------------------------------
 
 SWEEP = [(log_n, w) for log_n in (1, 2, 5, 9, 10, 13, 14, 15)
@@ -126,3 +181,48 @@ def test_four_step_jnp_path(name):
     want = np.asarray(getattr(ref_ntt, name)(jnp.asarray(x)))
     _same(getattr(ntt, name)(_t(x)), want)
 
+
+
+SHIFTS_IN = [1, 7, 31 * 5]
+
+
+@pytest.mark.parametrize("shift_in", SHIFTS_IN)
+def test_fused_lde_against_reference(shift_in, monkeypatch):
+    """The scalings fused into the passes: 1/n and shift_in^-bitrev(j) on
+    the INTT's last store, the coset powers on each DIT's first load, the
+    cosets stored interleaved (blowup 2), at (2^9, 33) and k = 5 (two
+    passes per transform)."""
+    monkeypatch.setattr(ntt_fused, "K_MAX", 5)
+    assert ntt_fused.pass_sizes(9) == [5, 4]
+    log_n, w = 9, 33
+    x = _rand(shift_in, (1 << log_n, w))
+    want_c = ref_ntt.interpolate_coset_rev(x, shift_in)
+    c_rev = ntt.interpolate_coset_rev(_t(x), shift_in)
+    _same(c_rev, want_c)
+    _same(ntt.eval_coset_from_rev(c_rev, 1, 31), ref_ntt.eval_coset_from_rev(want_c, 1, 31))
+    _same(ntt.coset_lde(_t(x), 1, 31, shift_in), ref_ntt.coset_lde(x, 1, 31, shift_in))
+
+
+@pytest.mark.parametrize("shift_in", SHIFTS_IN)
+def test_interpolate_canonical_input_folds_to_monty(shift_in):
+    """canonical=True: a canonical input gives the Montgomery coefficients
+    of its to_monty (the conversion rides on the INTT's table)."""
+    x = _rand(shift_in + 5, (1 << 9, 33))
+    want = ref_ntt.interpolate_coset_rev(ref_bb.to_monty(x), shift_in)
+    _same(ntt.interpolate_coset_rev(_t(x), shift_in, canonical=True), want)
+
+
+def test_lde_of_strided_chunks_into_strided_output():
+    """The prover's quotient chunks: rows r::2 of a (2n, 4) matrix read in
+    place, each coset LDE written into its 4-column block of one (2n, 8)."""
+    log_n = 6
+    n = 1 << log_n
+    q = _rand(11, (2 * n, 4))
+    out = torch.zeros((2 * n, 8), dtype=bb.DTYPE)
+    for r in range(2):
+        shift = 31 * (r + 2)
+        c = ntt.interpolate_coset_rev(_t(q)[r::2], shift)
+        want_c = ref_ntt.interpolate_coset_rev(np.ascontiguousarray(q[r::2]), shift)
+        _same(c, want_c)
+        ntt.eval_coset_from_rev(c, 1, 31, out=out[:, 4 * r:4 * r + 4])
+        _same(out[:, 4 * r:4 * r + 4], ref_ntt.eval_coset_from_rev(want_c, 1, 31))

@@ -83,6 +83,15 @@ def test_challenger_matches_reference():
     assert mine.sample() == ref.sample()
 
 
+def test_grind_without_device_needs_a_card(monkeypatch):
+    """device=None means the card; with none it raises, never falls back."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        Challenger().grind(4)
+
+
 def test_permute_jnp_reference():
     s = _rand(4, (6, 16))
     _same(p2.permute(_t(s)), np.asarray(ref_p2.permute(jnp.asarray(s))))

@@ -30,8 +30,7 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 # C entry points: name -> argtypes (all return a cudaError_t as int)
 SIGNATURES = {
-    "ntt_block": [_P, _P, _L, _I, _I, _I, _P, _P],
-    "ntt_stage": [_P, _P, _L, _I, _I, _I, _P, _P],
+    "ntt_pass": [_P, _L, _P, _L, _L, _I, _I, _I, _I, _P, _P, _P, _P],
     "p2_set_constants": [_P, _P, _P],
     "p2_permute": [_P, _P, _L, _P],
     "p2_hash_rows": [_P, _L, _I, _P, _P],

@@ -27,7 +27,7 @@ import subprocess
 CUDA_BIN = "/usr/local/cuda/bin"
 # C entry point of the library -> the kernels it launches, in order
 ENTRY_KERNELS = {
-    "ntt_block": ["ntt_block_kernel"], "ntt_stage": ["ntt_stage_kernel"],
+    "ntt_pass": ["ntt_pass_kernel"],
     "p2_permute": ["permute_kernel"], "p2_hash_rows": ["hash_rows_kernel"],
     "p2_compress": ["compress_kernel"], "mont_matmul_rows": ["mm_rows_kernel"],
     "mont_matmul_cols": ["mm_cols_kernel", "mm_cols_finish"],

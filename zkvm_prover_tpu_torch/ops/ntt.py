@@ -5,8 +5,11 @@ polynomials is an (N, W) int32 matrix of Montgomery residues: axis 0 is the
 evaluation / coefficient index, axis 1 the columns. DIF butterflies take
 natural order to bit-reversed order and DIT butterflies take it back, so the
 LDE never applies a bit-reversal permutation. Domains are natural-order
-cosets. The butterflies run through kernel K1 (`ntt_fused`); the coset and
-1/n scalings are plain torch multiplies.
+cosets. The butterflies run through kernel K1 (`ntt_fused`), and so do the
+per-row scalings: the 1/n and 1/shift_in^j factors ride on the store of the
+inverse transform's last pass, each coset's shift powers on the load of its
+forward transform's first pass, and that transform stores straight into the
+interleaved LDE rows.
 
 Tables (twiddles, bit-reversed power ladders) are built vectorised with
 numpy uint64 arithmetic and cached per size and device.
@@ -32,8 +35,9 @@ def _log2(n: int) -> int:
 
 
 def _as_2d(x):
-    """(N, ...) -> contiguous (N, prod(...))."""
-    return x.reshape(x.shape[0], -1).contiguous()
+    """(N, ...) -> (N, prod(...)), a view where the rows stay contiguous."""
+    y = x.reshape(x.shape[0], -1)
+    return y if y.shape[1] <= 1 or y.stride(1) == 1 else y.contiguous()
 
 
 def n_inv_monty(log_n: int) -> int:
@@ -41,20 +45,27 @@ def n_inv_monty(log_n: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def powers_bitrev_np(base_int: int, log_n: int) -> np.ndarray:
-    """[base^bitrev(j) for j < 2^log_n], Montgomery uint32."""
-    pw = bb.powers_np(base_int, 1 << log_n)
-    return bb.to_monty_np(pw[bb.bitrev_perm(log_n)])
+def powers_bitrev_np(base_int: int, log_n: int, factor_int: int = 1) -> np.ndarray:
+    """[factor * base^bitrev(j) for j < 2^log_n], Montgomery uint32."""
+    pw = bb.powers_np(base_int, 1 << log_n)[bb.bitrev_perm(log_n)]
+    return bb.to_monty_np(bb.mulmod_np(pw, factor_int % bb.P))
 
 
 _TABLES = {}
 
 
-def powers_bitrev(base_int: int, log_n: int, device) -> torch.Tensor:
-    key = (base_int, log_n, str(device))
+def powers_bitrev(base_int: int, log_n: int, device,
+                  factor_int: int = 1) -> torch.Tensor:
+    key = (base_int, log_n, factor_int, str(device))
     if key not in _TABLES:
-        _TABLES[key] = bb.as_tensor(powers_bitrev_np(base_int, log_n), device)
+        _TABLES[key] = bb.as_tensor(powers_bitrev_np(base_int, log_n, factor_int),
+                                    device)
     return _TABLES[key]
+
+
+def _n_inv_table(log_n: int, device) -> torch.Tensor:
+    """1/n in every row (canonical factor), for the inverse transforms."""
+    return powers_bitrev(1, log_n, device, pow(1 << log_n, bb.P - 2, bb.P))
 
 
 # ---------------------------------------------------------------------------
@@ -73,17 +84,18 @@ def ntt_rev_to_natural(x):
 
 
 def intt_natural_to_rev(x):
-    """Inverse NTT; natural-order evals -> bit-reversed coefficients."""
+    """Inverse NTT; natural-order evals -> bit-reversed coefficients (1/n on
+    the last pass's store)."""
     log_n = _log2(x.shape[0])
-    return bb.mul(ntt_fused.dif(_as_2d(x), log_n, True),
-                  n_inv_monty(log_n)).reshape(x.shape)
+    return ntt_fused.dif(_as_2d(x), log_n, True,
+                         post=_n_inv_table(log_n, x.device)).reshape(x.shape)
 
 
 def intt_rev_to_natural(x):
     """Inverse NTT; bit-reversed evals -> natural-order coefficients."""
     log_n = _log2(x.shape[0])
-    return bb.mul(ntt_fused.dit(_as_2d(x), log_n, True),
-                  n_inv_monty(log_n)).reshape(x.shape)
+    return ntt_fused.dit(_as_2d(x), log_n, True,
+                         post=_n_inv_table(log_n, x.device)).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -91,35 +103,48 @@ def intt_rev_to_natural(x):
 # ---------------------------------------------------------------------------
 
 
-def interpolate_coset_rev(evals, shift_in_int: int = 1):
+def interpolate_coset_rev(evals, shift_in_int: int = 1, canonical: bool = False):
     """Evals on the coset shift_in*H (natural order) -> bit-reversed
-    coefficients: INTT, then coefficient j divided by shift_in^j."""
+    coefficients: INTT, then coefficient j divided by shift_in^j. Both
+    factors, n^-1 * shift_in^-bitrev(j), are one per-row table on the store
+    of the DIF's last pass.
+
+    canonical=True takes evals as canonical residues rather than Montgomery
+    ones and folds the conversion into that table: the INTT is linear, so a
+    canonical input gives coefficients short of one factor R = 2^32, which
+    the table supplies. The output is the Montgomery result either way."""
     n = int(evals.shape[0])
     log_n = _log2(n)
-    c_rev = intt_natural_to_rev(evals)
-    if shift_in_int % bb.P != 1:
-        s_inv = pow(shift_in_int % bb.P, bb.P - 2, bb.P)
-        scale = powers_bitrev(s_inv, log_n, evals.device)
-        c_rev = bb.mul(c_rev, scale.reshape((n,) + (1,) * (evals.dim() - 1)))
-    return c_rev
+    s_inv = pow(shift_in_int % bb.P, bb.P - 2, bb.P)
+    factor = pow(n, bb.P - 2, bb.P) * (bb.R if canonical else 1)
+    table = powers_bitrev(s_inv, log_n, evals.device, factor % bb.P)
+    return ntt_fused.dif(_as_2d(evals), log_n, True,
+                         post=table).reshape(evals.shape)
 
 
-def eval_coset_from_rev(c_rev, log_blowup: int, shift_int: int):
+def eval_coset_from_rev(c_rev, log_blowup: int, shift_int: int, out=None):
     """Bit-reversed coefficients (n, ...) -> evals of the degree < n
     polynomials on the coset shift*G_m (natural order), m = n << log_blowup:
-    one scaled DIT per coset of H, interleaved (index r + j*blowup)."""
+    one DIT per coset of H, its shift powers on the first pass's load, its
+    last pass storing rows r, r + blowup, ... (index r + j*blowup). out, if
+    given, is an (m, W) view with contiguous rows; it is filled and
+    returned."""
     n = int(c_rev.shape[0])
     log_n = _log2(n)
     blowup = 1 << log_blowup
-    rest = tuple(c_rev.shape[1:])
+    c2 = _as_2d(c_rev)
+    if out is None:
+        res = torch.empty((n * blowup,) + tuple(c_rev.shape[1:]), dtype=bb.DTYPE,
+                          device=c_rev.device)
+        lde = res.view(n * blowup, -1)
+    else:
+        res = lde = out
     w_m_int = bb.two_adic_generator_int(log_n + log_blowup)
-    out = torch.empty((n, blowup) + rest, dtype=bb.DTYPE, device=c_rev.device)
     for r in range(blowup):
         s_r = (shift_int * pow(w_m_int, r, bb.P)) % bb.P
-        scale = powers_bitrev(s_r, log_n, c_rev.device).reshape(
-            (n,) + (1,) * len(rest))
-        out[:, r] = ntt_rev_to_natural(bb.mul(c_rev, scale))
-    return out.reshape((n * blowup,) + rest)
+        ntt_fused.dit(c2, log_n, False, pre=powers_bitrev(s_r, log_n, c_rev.device),
+                      out=lde[r::blowup])
+    return res
 
 
 def coset_lde(evals, log_blowup: int, shift_int: int = bb.GENERATOR,

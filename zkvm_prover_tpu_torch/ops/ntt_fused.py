@@ -4,15 +4,18 @@ The counterpart of the reference's Pallas kernel
 (`zkvm_prover_tpu/ops/ntt_pallas.py`, `fused_final_stages` and `dif_fused`),
 re-thought for Hopper in `csrc/ntt.cu`:
 
-- `block_stages` runs all block-local stages of each 2^k-row block in shared
-  memory: DIF stages k..1 (natural -> bit-reversed order) or their DIT
-  mirror, stages 1..k (bit-reversed -> natural).
-- `wide_stage` runs one stage whose half-size is 2^k or more.
-- `dif` / `dit` chain them into a whole transform.
+- `ntt_pass` runs any L <= K_MAX consecutive stages in one pass over the
+  matrix, with optional per-row multipliers at its load (`pre`) and its
+  store (`post`); its input and output may be row-strided views.
+- `block_stages` is the pass of the lowest k stages (the Pallas kernel's
+  block-local stages).
+- `dif` / `dit` chain ceil(log_n / k) passes into a whole transform (two at
+  log_n = 18), the multipliers riding on its first load and last store.
 
 Each wrapper has its plain torch version beside it. A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises. `launches`
-counts kernel launches per wrapper.
+counts kernel launches; `transforms` counts the whole transforms run on the
+card, so a caller can check the passes each one took.
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ import torch
 from .. import _build
 from ..fields import babybear as bb
 
-K_MAX = 10  # 2^10 rows x 8 columns x 4 bytes = 32 KB of shared memory
+K_MAX = 10  # 2^10 rows x 32 words = 128 KB of shared memory per tile
 
-launches = {"ntt_block": 0, "ntt_stage": 0}
+launches = {"ntt_pass": 0}
+transforms = {"dif": 0, "dit": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,12 +59,16 @@ def stage_twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
     return _TW_CACHE[key]
 
 
-def _check(x: torch.Tensor) -> None:
-    if not isinstance(x, torch.Tensor) or x.dtype != bb.DTYPE or x.dim() != 2:
-        raise TypeError("expected a 2-D int32 tensor")
-    n = x.shape[0]
-    if n & (n - 1) or n == 0:
+def _log2(n: int) -> int:
+    if n <= 0 or n & (n - 1):
         raise ValueError(f"row count {n} is not a power of two")
+    return n.bit_length() - 1
+
+
+def _check(x: torch.Tensor, what: str = "input") -> None:
+    if not isinstance(x, torch.Tensor) or x.dtype != bb.DTYPE or x.dim() != 2:
+        raise TypeError(f"{what}: expected a 2-D int32 tensor")
+    _log2(x.shape[0])
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
 
@@ -79,14 +87,75 @@ def _butterflies(x, s: int, tw, dit: bool):
                        dim=1).reshape(n, w)
 
 
-def block_stages_plain(x, k: int, inverse: bool = False, dit: bool = False):
-    # stages with half-size < 2^k act inside each 2^k-row block
-    return dit_plain(x, k, inverse) if dit else dif_plain(x, k, inverse)
+def ntt_pass_plain(x, a: int, L: int, inverse: bool = False, dit: bool = False,
+                   pre=None, post=None):
+    """Plain torch: `pre` per row, the stages with half-sizes
+    2^a .. 2^(a+L-1) (DIF top down, DIT bottom up), then `post` per row."""
+    tw = stage_twiddles(_log2(x.shape[0]), inverse, x.device)
+    if pre is not None:
+        x = bb.mul(x, pre.reshape(-1, 1))
+    stages = range(a + 1, a + L + 1) if dit else range(a + L, a, -1)
+    for s in stages:
+        x = _butterflies(x, s, tw, dit)
+    if post is not None:
+        x = bb.mul(x, post.reshape(-1, 1))
+    return x
 
 
-def wide_stage_plain(x, s: int, log_n: int, inverse: bool = False,
-                     dit: bool = False):
-    return _butterflies(x, s, stage_twiddles(log_n, inverse, x.device), dit)
+def _row_pitch(t: torch.Tensor, what: str) -> int:
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{what}: rows must be contiguous (stride(1) == 1)")
+    return max(t.stride(0), t.shape[1])
+
+
+def ntt_pass(x, a: int, L: int, inverse: bool = False, dit: bool = False,
+             pre=None, post=None, out=None):
+    """The stages with half-sizes 2^a .. 2^(a+L-1) of the transform down
+    axis 0 of x, in one pass: `pre` (n,) multiplies input row i at the load,
+    `post` (n,) output row i at the store (Montgomery). x and out may be
+    views whose rows are contiguous at any pitch; out may be x (in place).
+    Returns out (a new tensor if None)."""
+    _check(x)
+    n, w = x.shape
+    if not 1 <= L <= K_MAX or a < 0 or a + L > _log2(n):
+        raise ValueError(f"stages 2^{a}..2^{a + L - 1} out of range for {n} rows")
+    for t, what in ((pre, "pre"), (post, "post")):
+        if t is not None and (t.dtype != bb.DTYPE or t.numel() != n
+                              or t.device != x.device):
+            raise ValueError(f"{what}: expected ({n},) int32 on {x.device}")
+    if out is not None:
+        _check(out, "out")
+        if out.shape != x.shape or out.device != x.device:
+            raise ValueError("out must match x in shape and device")
+    if x.device.type == "cpu":
+        res = ntt_pass_plain(x, a, L, inverse, dit, pre, post)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    ld_x = _row_pitch(x, "x")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format) \
+        if out is None else out
+    ld_y = _row_pitch(out, "out")
+    if w == 0:
+        return out
+    pre = None if pre is None else pre.contiguous()
+    post = None if post is None else post.contiguous()
+    tw = stage_twiddles(_log2(n), inverse, x.device)
+    _build.check(_build.lib().ntt_pass(
+        x.data_ptr(), ld_x, out.data_ptr(), ld_y, n, w, a, L, int(dit),
+        tw.data_ptr(), None if pre is None else pre.data_ptr(),
+        None if post is None else post.data_ptr(),
+        _build.stream(x.device)), "ntt_pass")
+    launches["ntt_pass"] += 1
+    return out
+
+
+def block_stages(x, k: int, inverse: bool = False, dit: bool = False,
+                 out=None):
+    """Stages k..1 (DIF) or 1..k (DIT) inside each 2^k-row block of x: the
+    pass with a = 0."""
+    return ntt_pass(x, 0, k, inverse, dit, out=out)
 
 
 def dif_plain(x, log_n: int, inverse: bool):
@@ -105,75 +174,56 @@ def dit_plain(x, log_n: int, inverse: bool):
     return x
 
 
-def block_stages(x, k: int, inverse: bool = False, dit: bool = False,
-                 out=None):
-    """Stages k..1 (DIF) or 1..k (DIT) inside each 2^k-row block of x."""
+def pass_sizes(log_n: int, k: int = None) -> list:
+    """Stages per pass of a whole transform: ceil(log_n / k) passes (k:
+    K_MAX if None), their sizes as even as can be (9 + 9 at log_n = 18)."""
+    k = K_MAX if k is None else k
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k={k} out of range 1..{K_MAX}")
+    passes = -(-log_n // k)
+    return [log_n // passes + (i < log_n % passes) for i in range(passes)]
+
+
+def _transform(x, log_n: int, inverse: bool, k: int, dit: bool, pre, post, out):
     _check(x)
-    n, w = x.shape
-    if k > n.bit_length() - 1 or k > K_MAX or k < 1:
-        raise ValueError(f"k={k} out of range for {n} rows")
-    if x.device.type == "cpu":
-        res = block_stages_plain(x, k, inverse, dit)
+    if x.shape[0] != 1 << log_n:
+        raise ValueError(f"{x.shape[0]} rows for log_n={log_n}")
+    if log_n == 0 or x.shape[1] == 0:  # no butterflies: only the multipliers
+        y = x.clone()
+        for t in (pre, post):
+            if t is not None:
+                y = bb.mul(y, t.reshape(-1, 1))
         if out is None:
-            return res
-        out.copy_(res)
+            return y
+        out.copy_(y)
         return out
-    if not x.is_contiguous():
-        raise ValueError("block_stages needs a contiguous tensor")
-    out = torch.empty_like(x) if out is None else out
-    tw = stage_twiddles(k, inverse, x.device)
-    lib = _build.lib()
-    _build.check(lib.ntt_block(x.data_ptr(), out.data_ptr(), n, w, k,
-                               int(dit), tw.data_ptr(),
-                               _build.stream(x.device)), "ntt_block")
-    launches["ntt_block"] += 1
-    return out
-
-
-def wide_stage(x, s: int, log_n: int, inverse: bool = False,
-               dit: bool = False, out=None):
-    """One stage with half-size 2^(s-1) over all n = 2^log_n rows of x."""
-    _check(x)
-    n, w = x.shape
-    if n != 1 << log_n or not 1 <= s <= log_n:
-        raise ValueError(f"stage {s} out of range for {n} rows")
-    if x.device.type == "cpu":
-        res = wide_stage_plain(x, s, log_n, inverse, dit)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
-    if not x.is_contiguous():
-        raise ValueError("wide_stage needs a contiguous tensor")
-    out = torch.empty_like(x) if out is None else out
-    tw = stage_twiddles(log_n, inverse, x.device)
-    lib = _build.lib()
-    _build.check(lib.ntt_stage(x.data_ptr(), out.data_ptr(), n, w, s - 1,
-                               int(dit), tw.data_ptr(),
-                               _build.stream(x.device)), "ntt_stage")
-    launches["ntt_stage"] += 1
-    return out
-
-
-def dif(x, log_n: int, inverse: bool, k: int = K_MAX):
-    """Natural -> bit-reversed butterflies (the reference's `_dif`): the
-    wide stages log_n..k+1 one pass each, then one block pass for k..1."""
-    if log_n == 0 or x.shape[1] == 0:
-        return x.clone()
-    k = min(k, log_n)
-    y = x
-    for s in range(log_n, k, -1):
-        y = wide_stage(y, s, log_n, inverse, out=None if y is x else y)
-    return block_stages(y, k, inverse, out=None if y is x else y)
-
-
-def dit(x, log_n: int, inverse: bool, k: int = K_MAX):
-    """Bit-reversed -> natural butterflies (the reference's `_dit`): one
-    block pass for stages 1..k, then the wide stages k+1..log_n."""
-    if log_n == 0 or x.shape[1] == 0:
-        return x.clone()
-    k = min(k, log_n)
-    y = block_stages(x, k, inverse, dit=True)
-    for s in range(k + 1, log_n + 1):
-        y = wide_stage(y, s, log_n, inverse, dit=True, out=y)
+    sizes = pass_sizes(log_n, k)
+    if x.device.type == "cuda":
+        transforms["dit" if dit else "dif"] += 1
+    a = 0 if dit else log_n
+    y = out
+    for p, L in enumerate(sizes):
+        if not dit:
+            a -= L
+        y = ntt_pass(x if p == 0 else y, a, L, inverse, dit,
+                     pre=pre if p == 0 else None,
+                     post=post if p == len(sizes) - 1 else None, out=y)
+        if dit:
+            a += L
     return y
+
+
+def dif(x, log_n: int, inverse: bool, k: int = None, pre=None, post=None,
+        out=None):
+    """Natural -> bit-reversed butterflies (the reference's `_dif`): the
+    stages from the top down, at most k per pass (K_MAX if None). `pre` /
+    `post` multiply input / output rows at the first load / last store; out
+    may be a row-strided view."""
+    return _transform(x, log_n, inverse, k, False, pre, post, out)
+
+
+def dit(x, log_n: int, inverse: bool, k: int = None, pre=None, post=None,
+        out=None):
+    """Bit-reversed -> natural butterflies (the reference's `_dit`): the
+    stages from the bottom up, at most k per pass (see `dif`)."""
+    return _transform(x, log_n, inverse, k, True, pre, post, out)

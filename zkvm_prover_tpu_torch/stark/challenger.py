@@ -15,6 +15,7 @@ import torch
 
 from ..fields import babybear as bb
 from ..ops import poseidon2 as p2
+from .config import resolve_device
 
 WIDTH = p2.WIDTH
 RATE = p2.RATE
@@ -64,14 +65,15 @@ class Challenger:
         return v & ((1 << bits) - 1)
 
     # -- proof of work ---------------------------------------------------
-    def grind(self, bits: int, device="cpu", batch: int = None) -> int:
+    def grind(self, bits: int, device=None, batch: int = None) -> int:
         """Smallest nonce n (canonical) with clone().observe(n).sample_bits
         == 0. Each batch of candidates is one batched permutation on
-        `device`; the first hit in nonce order is the answer, whatever the
-        batch size."""
+        `device` (None: the card, raising without one; "cpu" for the host);
+        the first hit in nonce order is the answer, whatever the batch
+        size."""
         if bits == 0:
             return 0
-        device = torch.device(device)
+        device = resolve_device(device)
         if batch is None:
             batch = 1 << (18 if device.type == "cuda" else 14)
         prefix = list(self.input_buffer)

@@ -1,9 +1,12 @@
 """STARK and FRI configuration (the reference's security profile): FRI
-log_blowup 1, 100 queries, 16 PoW bits, log_final_poly_len 0."""
+log_blowup 1, 100 queries, 16 PoW bits, log_final_poly_len 0; and the
+port's device rule."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import torch
 
 from ..fields import babybear as bb
 
@@ -39,3 +42,13 @@ def fast_test_config() -> StarkConfig:
     """Reduced-query config for tests (NOT secure)."""
     return StarkConfig(
         fri=FriConfig(log_blowup=1, num_queries=8, proof_of_work_bits=4))
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means the card; without one that raises (no CPU fallback)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the host")
+        return torch.device("cuda")
+    return torch.device(device)

@@ -34,7 +34,7 @@ from ..ops import ntt
 from ..utils import ext_np
 from . import domain, fri, merkle
 from .challenger import Challenger
-from .config import StarkConfig
+from .config import StarkConfig, resolve_device
 
 
 @dataclass
@@ -59,16 +59,6 @@ class StarkProof:
     fri_proof: fri.FriProof
     query_openings: Dict[int, QueryOpening] = field(default_factory=dict)
     stat: Dict[str, float] = field(default_factory=dict)
-
-
-def resolve_device(device=None) -> torch.device:
-    """None means the card; without one that raises (no CPU fallback)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to prove on the host")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _observe_opened(challenger: Challenger, *arrays):
@@ -162,9 +152,8 @@ def prove(
         challenger.observe_canonical_u32(int(pv))
 
     # 1. trace LDE and commitment
-    trace_m = bb.to_monty(bb.as_tensor(trace, dev))
-    c_rev = ntt.interpolate_coset_rev(trace_m, 1)
-    del trace_m
+    # the trace is canonical: the INTT's last pass converts it to Montgomery
+    c_rev = ntt.interpolate_coset_rev(bb.as_tensor(trace, dev), 1, canonical=True)
     trace_lde = ntt.eval_coset_from_rev(c_rev, log_blowup, g)
     phases.mark("lde")
     tree_t = merkle.commit([trace_lde])
@@ -187,16 +176,15 @@ def prove(
 
     # 3. split into per-coset chunks, re-extend, commit
     n_chunks = 1 << LOG_QUOTIENT_DEGREE
-    chunk_ldes = []
     chunk_crevs = []
+    chunk_lde = torch.empty((m, 4 * n_chunks), dtype=bb.DTYPE, device=dev)
     for r in range(n_chunks):
-        chunk = q[r::n_chunks].contiguous()  # (n, 4) evals on (g w_m^r) H
         s_r = (g * pow(w_m_int, r, bb.P)) % bb.P
-        cr = ntt.interpolate_coset_rev(chunk, s_r)
+        # q[r::n_chunks]: the (n, 4) evals on (g w_m^r) H, read in place
+        cr = ntt.interpolate_coset_rev(q[r::n_chunks], s_r)
         chunk_crevs.append(cr)
-        chunk_ldes.append(ntt.eval_coset_from_rev(cr, log_blowup, g))
-    chunk_lde = torch.cat(chunk_ldes, dim=1).contiguous()  # (m, 8)
-    del q, chunk_ldes
+        ntt.eval_coset_from_rev(cr, log_blowup, g, out=chunk_lde[:, 4 * r:4 * r + 4])
+    del q
     phases.mark("constraints_quotient")
     tree_q = merkle.commit([chunk_lde])
     challenger.observe_slice(tree_q.root_np())
