@@ -55,8 +55,8 @@ ENTRY_SHAPES = {
     "p2_permute": ("poseidon2_permute", lambda a: f"({a[2]},16)"),
     "p2_hash_rows": ("poseidon2_hash_rows", lambda a: f"({a[1]},{a[2]})"),
     "p2_compress": ("poseidon2_compress", lambda a: f"{a[1]} digests, {a[2]} levels"),
-    "mont_matmul_rows": ("mont_matmul_rows", lambda a: f"({a[2]},{a[3]})"),
-    "mont_matmul_cols": ("mont_matmul_cols", lambda a: f"({a[2]},{a[3]})"),
+    "mont_matmul_rows": ("mont_matmul_rows", lambda a: f"({a[2]},{a[3]}) k={a[4]}"),
+    "mont_matmul_cols": ("mont_matmul_cols", lambda a: f"({a[2]},{a[3]})^T k={a[4]}"),
 }
 
 
@@ -224,26 +224,35 @@ def check_kernels(log_n: int, width: int, seed: int):
            grind_batch * 128, grind_batch * MODMULS_PER_PERM * MULS_PER_MODMUL)
     del pairs, states
 
+    # K3 at the proof's calls: the trace's two DEEP sums fused (k = 2) and the
+    # quotient chunks' (k = 1); the OOD trace call fused (k = 2) and each
+    # quotient chunk's (k = 1); k = 1 at the trace's width for comparison
     src_mm = "zkvm_prover_tpu_torch/csrc/mont_matmul.cu"
-    for r, c in ((m, width), (m, 8)):
+    for transpose, r, c, k in ((False, m, width, 2), (False, m, width, 1),
+                               (False, m, 8, 1), (True, n, width, 2),
+                               (True, n, width, 1), (True, n, 4, 1)):
         a = random_field(gen, (r, c), dev)
-        b = random_field(gen, (c, 4), dev)
-        record("mont_matmul_rows", src_mm, "zkvm_prover_tpu/stark/prover.py:81",
-               f"({r},{c})@({c},4)", max_err(mm.mont_matmul(a, b),
-                                             mm.mont_matmul_plain(a, b)),
-               time_ms(lambda: mm.mont_matmul(a, b)),
-               time_ms(lambda: mm.mont_matmul_plain(a, b), reps=1, warmup=False),
-               r * c * 4 + c * 16 + r * 16, 4 * r * c)
-    for r, c in ((n, width), (n, 4)):
-        a = random_field(gen, (r, c), dev)
-        b = random_field(gen, (r, 4), dev)
-        record("mont_matmul_cols", src_mm, "zkvm_prover_tpu/ops/ntt.py:367",
-               f"({r},{c})^T@({r},4)",
-               max_err(mm.mont_matmul(a, b, transpose_a=True),
-                       mm.mont_matmul_plain(a, b, transpose_a=True)),
-               time_ms(lambda: mm.mont_matmul(a, b, transpose_a=True)),
-               time_ms(lambda: mm.mont_matmul_plain(a, b, transpose_a=True), reps=1, warmup=False),
-               r * c * 4 + r * 16 + c * 16, 4 * r * c)
+        b = random_field(gen, (r if transpose else c, 4 * k), dev)
+        name = "mont_matmul_cols" if transpose else "mont_matmul_rows"
+        record(name, src_mm, "zkvm_prover_tpu/ops/ntt.py:367" if transpose
+               else "zkvm_prover_tpu/stark/prover.py:81",
+               f"({r},{c}){'^T' if transpose else ''} k={k}",
+               max_err(mm.mont_matmul(a, b, transpose),
+                       mm.mont_matmul_plain(a, b, transpose)),
+               time_ms(lambda: mm.mont_matmul(a, b, transpose)),
+               time_ms(lambda: mm.mont_matmul_plain(a, b, transpose), reps=1,
+                       warmup=False),
+               r * c * 4 + 16 * k * (r + c), 4 * k * r * c)
+        del a, b
+    # the accumulator's carry path: every entry p - 1
+    for transpose, r, c in ((False, m, width), (True, n, width)):
+        a = torch.full((r, c), bb.P - 1, dtype=bb.DTYPE, device=dev)
+        b = torch.full((r if transpose else c, 8), bb.P - 1, dtype=bb.DTYPE, device=dev)
+        err = max_err(mm.mont_matmul(a, b, transpose), mm.mont_matmul_plain(a, b, transpose))
+        print(f"  {'mont_matmul_cols' if transpose else 'mont_matmul_rows':20s} "
+              f"({r},{c}) k=2, every entry p-1: err={err}", flush=True)
+        if err != 0:
+            raise AssertionError("K3 disagrees with its plain version at p - 1")
     del a, b
     torch.cuda.empty_cache()
     return rows
@@ -446,6 +455,9 @@ def main() -> int:
     report["kernel_resources"] = kernel_report.kernel_resources(str(_build.build()))
     for name, row in report["kernel_resources"].items():
         print(f"[1] {name:24s} {row}")
+    if any(row.get("calls") for name, row in report["kernel_resources"].items()
+           if name.startswith("mm_")):
+        raise AssertionError("a K3 kernel calls a routine (a 64-bit division?)")
     report["pipe_rates"] = kernel_report.pipe_rates(probe_dir)
     for row in report["pipe_rates"]:
         print(f"[1] {row['op']:16s} {row['per_clock_per_sm']:7.2f} per clock per SM "
@@ -487,6 +499,13 @@ def main() -> int:
           f"({ntt_fused.transforms})", flush=True)
     if args.log_n <= 2 * ntt_fused.K_MAX and counts["ntt_pass"] > 2 * n_transforms:
         raise AssertionError("a transform took more than 2 K1 launches")
+    # K3: one rows call reads the trace for both DEEP sums, one the quotient
+    # chunks; one transposed call reads c_rev for both OOD points, one each
+    # quotient chunk (a transposed call is two launches)
+    k3_rows, k3_cols = counts["mont_matmul_rows"], counts["mont_matmul_cols"] // 2
+    print(f"[3] K3: {k3_rows} rows launches, {k3_cols} transposed calls", flush=True)
+    if k3_rows > 2 or k3_cols > 3:
+        raise AssertionError("K3 read a matrix more than once per opened point set")
     t0 = time.perf_counter()
     ok = verifier.verify(air, proof, cfg)
     verify_s = time.perf_counter() - t0
@@ -526,6 +545,13 @@ def main() -> int:
     print("[3] device work in the LDE (proof start to the first row hash):")
     for name, row in prof["lde_window"].items():
         print(f"      {name:60s} launches {row['launches']:4d}  device ms {row['ms']:8.3f}")
+    k3 = {k: r for k, r in prof["per_kernel"].items() if k.startswith("mm_")}
+    print(f"[3] K3 device ms per proof: {sum(r['ms'] for r in k3.values()):.3f} "
+          f"({ {k: r['launches'] for k, r in k3.items()} } launches)", flush=True)
+    if (sum(r["launches"] for k, r in k3.items() if k.startswith("mm_rows")) > 2
+            or sum(r["launches"] for k, r in k3.items()
+                   if k.startswith("mm_cols_kernel")) > 3):
+        raise AssertionError("too many K3 launches in the profiled proof")
     plain_lde = sum(r["ms"] for k, r in prof["lde_window"].items()
                     if k.startswith("plain torch"))
     print(f"[3] plain torch device ms in the LDE: {plain_lde:.3f}", flush=True)

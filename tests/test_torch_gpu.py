@@ -188,17 +188,56 @@ def test_poseidon2_constants_follow_overrides(cuda):
     check()
 
 
-@pytest.mark.parametrize("r,c", [(1, 1), (37, 495), (4096, 8), (5000, 33)])
-def test_mont_matmul_rows(cuda, r, c):
-    a, b = _rand(r, (r, c), cuda), _rand(c, (c, 4), cuda)
+K3_WIDTHS = [1, 4, 8, 31, 33, 495]
+
+
+@pytest.mark.parametrize("k", mm.KS)
+@pytest.mark.parametrize("c", K3_WIDTHS)
+@pytest.mark.parametrize("r", [1, 37, 129, 4097])
+def test_mont_matmul_rows(cuda, r, c, k):
+    """Widths around the 4/8/16/32-column staged chunk, row counts around
+    the 128-row tile, k = 1 and 2 right-hand sides."""
+    a, b = _rand(r * c, (r, c), cuda), _rand(c + k, (c, 4 * k), cuda)
+    before = mm.launches["mont_matmul_rows"]
     _same(mm.mont_matmul(a, b), mm.mont_matmul_plain(a, b))
+    assert mm.launches["mont_matmul_rows"] == before + 1
 
 
-@pytest.mark.parametrize("r,c", [(1, 1), (3000, 495), (70000, 4)])
-def test_mont_matmul_cols(cuda, r, c):
-    a, b = _rand(r, (r, c), cuda), _rand(c + 1, (r, 4), cuda)
+@pytest.mark.parametrize("k", mm.KS)
+@pytest.mark.parametrize("c", K3_WIDTHS)
+@pytest.mark.parametrize("r", [1, 3000, 70001])
+def test_mont_matmul_cols(cuda, r, c, k):
+    a, b = _rand(r + c, (r, c), cuda), _rand(c + 1, (r, 4 * k), cuda)
     _same(mm.mont_matmul(a, b, transpose_a=True),
           mm.mont_matmul_plain(a, b, transpose_a=True))
+
+
+@pytest.mark.parametrize("transpose_a,r,c", [(False, 4097, 495), (True, 1 << 18, 495)])
+def test_mont_matmul_all_p_minus_1(cuda, transpose_a, r, c):
+    """Every entry p - 1: the largest products, through the accumulator's
+    carry path (the 96-bit sum's top word) and its final reduction."""
+    a = torch.full((r, c), bb.P - 1, dtype=bb.DTYPE, device=cuda)
+    b = torch.full((r if transpose_a else c, 8), bb.P - 1, dtype=bb.DTYPE, device=cuda)
+    _same(mm.mont_matmul(a, b, transpose_a), mm.mont_matmul_plain(a, b, transpose_a))
+
+
+def test_two_point_ood_and_deep_combine_cuda_equal_cpu(cuda):
+    from zkvm_prover_tpu_torch.stark import prover
+
+    n, w = 1 << 10, 33
+    c = _rand(1, (n, w), cuda)
+    zs = [_rand(2, (4,), cuda), _rand(3, (4,), cuda)]
+    for got, want in zip(ntt.eval_poly_at_points_ext(c, zs),
+                         ntt.eval_poly_at_points_ext(c.cpu(), [z.cpu() for z in zs])):
+        _same(got, want)
+    rng = np.random.default_rng(4)
+    opened = [rng.integers(0, bb.P, size=s, dtype=np.uint64).astype(np.uint32)
+              for s in ((4,), (4,), (w, 4), (w, 4), (8, 4), (4,))]
+    mats = [_rand(5, (2 * n, w), cuda), _rand(6, (2 * n, 8), cuda), _rand(7, (2 * n,), cuda)]
+    before = mm.launches["mont_matmul_rows"]
+    got = prover._deep_combine(*mats, *opened)
+    assert mm.launches["mont_matmul_rows"] == before + 2  # trace once, chunks once
+    _same(got, prover._deep_combine(*[t.cpu() for t in mats], *opened))
 
 
 def test_wrappers_reject_bad_input(cuda):
@@ -209,6 +248,10 @@ def test_wrappers_reject_bad_input(cuda):
         p2.hash_rows(x.to(torch.int64))
     with pytest.raises(ValueError):
         mm.mont_matmul(x, _rand(5, (5, 4), cuda))
+    with pytest.raises(ValueError):
+        mm.mont_matmul(x[:, ::2], _rand(5, (3, 4), cuda))  # not contiguous
+    with pytest.raises(ValueError):
+        mm.mont_matmul(x, _rand(5, (6, 12), cuda))  # k = 3
 
 
 def test_wrappers_reject_misaligned_input(cuda):
@@ -223,6 +266,8 @@ def test_wrappers_reject_misaligned_input(cuda):
     a = _rand(8, (8, 5), cuda)
     with pytest.raises(ValueError):
         mm.mont_matmul(a, _rand(9, (4 * 5 + 1,), cuda)[1:].view(5, 4))
+    with pytest.raises(ValueError):
+        mm.mont_matmul(a, _rand(9, (8 * 8 + 1,), cuda)[1:].view(8, 8), transpose_a=True)
 
 
 def test_small_proof_cuda_equals_cpu(cuda):

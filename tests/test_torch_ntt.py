@@ -226,3 +226,30 @@ def test_lde_of_strided_chunks_into_strided_output():
         _same(c, want_c)
         ntt.eval_coset_from_rev(c, 1, 31, out=out[:, 4 * r:4 * r + 4])
         _same(out[:, 4 * r:4 * r + 4], ref_ntt.eval_coset_from_rev(want_c, 1, 31))
+
+
+@pytest.mark.parametrize("log_n,w", [(9, 33), (6, 1)])
+def test_eval_poly_at_two_points_ext(log_n, w):
+    """The OOD phase's fused call (both points from one read of the
+    coefficients) equals the reference called once per point."""
+    c = _rand(log_n * 7 + w, (1 << log_n, w))
+    z1, z2 = _rand(log_n + 5, (4,)), _rand(log_n + 6, (4,))
+    got = ntt.eval_poly_at_points_ext(_t(c), [_t(z1), _t(z2)])
+    assert len(got) == 2
+    _same(got[0], ref_ntt.eval_poly_at_point_ext(c, z1))
+    _same(got[1], ref_ntt.eval_poly_at_point_ext(c, z2))
+
+
+@pytest.mark.parametrize("transpose_a", [False, True])
+def test_mont_matmul_plain_two_rhs(transpose_a):
+    """k = 2 right-hand sides side by side equal two k = 1 calls."""
+    from zkvm_prover_tpu_torch.ops import mont_matmul as mm
+
+    a = _t(_rand(31, (300, 33)))
+    b = _t(_rand(32, (300 if transpose_a else 33, 8)))
+    got = mm.mont_matmul(a, b, transpose_a)
+    assert got.shape == (33 if transpose_a else 300, 8)
+    for i in range(2):
+        assert torch.equal(got[:, 4 * i:4 * i + 4],
+                           mm.mont_matmul(a, b[:, 4 * i:4 * i + 4].contiguous(),
+                                          transpose_a))

@@ -185,3 +185,25 @@ def test_poseidon2_air_proof_equals_reference():
     proof = prover.prove(Poseidon2Air(), trace, [], fast_test_config(),
                          device="cpu")
     assert_proofs_equal(proof, ref_proof)
+
+
+def test_deep_combine_matches_reference(monkeypatch):
+    """The DEEP codeword (the two trace sums fused into one K3 call) equals
+    the reference's `_deep_combine` on the same numpy inputs, m = 2^9, w = 33.
+    The reference runs unjitted with numpy in place of jnp: its field code
+    then takes its host path, bit-identical to the jitted one, with no XLA
+    compile (about 25 s on the CPU)."""
+    rng = np.random.default_rng(12)
+    m, w = 1 << 9, 33
+
+    def rand(*shape):
+        return rng.integers(0, bb.P, size=shape, dtype=np.uint64).astype(np.uint32)
+
+    args = (rand(m, w), rand(m, 8), rand(m), rand(4), rand(4), rand(w, 4),
+            rand(w, 4), rand(8, 4), rand(4))
+    monkeypatch.setattr(ref_prover, "jnp", np)
+    want = ref_prover._deep_combine.__wrapped__(*args)
+    assert isinstance(want, np.ndarray)
+    trace_lde, chunk_lde, x = (bb.as_tensor(a, "cpu") for a in args[:3])
+    got = prover._deep_combine(trace_lde, chunk_lde, x, *args[3:])
+    np.testing.assert_array_equal(bb.to_numpy(got), want)

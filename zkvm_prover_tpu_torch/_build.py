@@ -35,8 +35,8 @@ SIGNATURES = {
     "p2_permute": [_P, _P, _L, _P],
     "p2_hash_rows": [_P, _L, _I, _P, _P],
     "p2_compress": [_P, _L, _I, _P, _P],
-    "mont_matmul_rows": [_P, _P, _L, _I, _P, _P],
-    "mont_matmul_cols": [_P, _P, _L, _I, _L, _P, _P, _P],
+    "mont_matmul_rows": [_P, _P, _L, _I, _I, _P, _P],
+    "mont_matmul_cols": [_P, _P, _L, _I, _I, _L, _P, _P, _P],
 }
 
 _LIB = None

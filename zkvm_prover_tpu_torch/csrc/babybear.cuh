@@ -23,9 +23,8 @@ namespace bb {
 
 constexpr uint32_t P = 2013265921u;
 constexpr uint32_t NP = 0x77FFFFFFu;  // -p^-1 mod 2^32
-// The largest multiple of p not above 2^63; an accumulator that reached
-// 2^63 drops it and stays congruent (used by the exact dot products).
-constexpr uint64_t P_FOLD = 9223372035262058766ull;
+// 2^64 mod p: the Montgomery form of 2^32, so mul(x, R2) = x * 2^32 mod p.
+constexpr uint32_t R2 = 1172168163u;
 
 // s < 2p -> s mod p (unsigned min: s - p wraps above s when s < p)
 __device__ __forceinline__ uint32_t reduce(uint32_t s) { return min(s, s - P); }
@@ -72,10 +71,35 @@ __device__ __forceinline__ uint32_t redc(uint64_t t) {
   return r >= P ? r - P : r;
 }
 
-// acc += a * b with acc kept below 2^63: each product is below p^2 < 2^62.
-__device__ __forceinline__ void mac(uint64_t& acc, uint32_t a, uint32_t b) {
-  acc += static_cast<uint64_t>(a) * b;
-  if (acc >= (1ull << 63)) acc -= P_FOLD;
+// x mod p for x < p * 2^32: redc takes off 2^32, mul by R2 puts it back.
+__device__ __forceinline__ uint32_t mod_p(uint64_t x) { return mul(redc(x), R2); }
+
+// a * b + c as one 32x32->64 multiply-add (IMAD.WIDE.U32 with its addend).
+__device__ __forceinline__ uint64_t mad_wide(uint32_t a, uint32_t b, uint64_t c) {
+  uint64_t r;
+  asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(r) : "r"(a), "r"(b), "l"(c));
+  return r;
 }
+
+// An exact sum of products in 96 bits (lo, hi, top), for the dot products of
+// K3. Four products of values below p sum below 4p^2 < 2^64, so a caller
+// chains four `mad_wide` into one 64-bit word and adds that here with one
+// carry chain (3 ALU ops, no compare and no fold). Each product is below
+// 2^62, so `top` stays below p, as `mont` needs, for fewer than 2^33 products.
+struct Acc96 {
+  uint32_t lo = 0, hi = 0, top = 0;
+
+  __device__ __forceinline__ void add(uint64_t t) {
+    asm("add.cc.u32 %0, %0, %3;\n\taddc.cc.u32 %1, %1, %4;\n\taddc.u32 %2, %2, 0;"
+        : "+r"(lo), "+r"(hi), "+r"(top)
+        : "r"(static_cast<uint32_t>(t)), "r"(static_cast<uint32_t>(t >> 32)));
+  }
+
+  // (top * 2^64 + hi * 2^32 + lo) * 2^-32 mod p, in [0, p):
+  // (top * 2^32 + hi) mod p plus lo * 2^-32, each reduced without a division.
+  __device__ __forceinline__ uint32_t mont() const {
+    return bb::add(mod_p((static_cast<uint64_t>(top) << 32) | hi), redc(lo));
+  }
+};
 
 }  // namespace bb

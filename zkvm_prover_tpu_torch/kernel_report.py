@@ -5,8 +5,10 @@
 - `op_counts`: SASS instructions per BabyBear product (`bb::mul`, and the
   lazy signed `bb::smul` where the header has it) and per add, from a probe
   built against `csrc/babybear.cuh`: (chain of 4 - chain of 1) / 3.
-- `kernel_resources`: registers, static shared memory and SASS instruction
-  count of each kernel of the built library (`cuobjdump`).
+- `kernel_resources`: registers, static shared memory, SASS instruction
+  count, wide multiplies (IMAD.WIDE, IMAD.HI) and calls (a 64-bit division
+  or remainder by a variable is a called routine) of each kernel of the
+  built library (`cuobjdump`).
 - `pipe_rates`: results per clock per SM of the integer instructions the
   kernels are made of (IMAD, IMAD.WIDE, IMAD.HI, IADD3), each alone and
   IMAD.HI with IADD3 interleaved, timed with `clock64()` on the card (the
@@ -35,11 +37,14 @@ ENTRY_KERNELS = {
 
 
 def short_name(name: str) -> str:
-    """A kernel's name without namespace and signature, mangled or not."""
+    """A kernel's name without namespace and signature, mangled or not, with
+    its bool or int template argument."""
     for k in (k for ks in ENTRY_KERNELS.values() for k in ks):
         if k in name:
+            num = re.search(re.escape(k) + r"(?:ILi(\d+)E|<(\d+)>)", name)
             flag = ("<true>" if "ILb1E" in name or "<true>" in name else
-                    "<false>" if "ILb0E" in name or "<false>" in name else "")
+                    "<false>" if "ILb0E" in name or "<false>" in name else
+                    f"<{num.group(1) or num.group(2)}>" if num else "")
             return k + flag
     return name
 
@@ -100,7 +105,8 @@ def op_counts(csrc: str, build_dir: str) -> dict:
 
 
 def kernel_resources(lib_path: str) -> dict:
-    """{kernel: {"registers", "shared_bytes", "instructions"}} of a library."""
+    """{kernel: {"registers", "shared_bytes", "instructions", "wide_muls",
+    "calls"}} of a library."""
     text = subprocess.run([f"{CUDA_BIN}/cuobjdump", "-res-usage", lib_path], check=True,
                           capture_output=True, text=True).stdout
     res = {}
@@ -110,6 +116,9 @@ def kernel_resources(lib_path: str) -> dict:
     for name, ops in sass_functions(lib_path).items():
         if name in res:
             res[name]["instructions"] = sum(ops.values())
+            res[name]["wide_muls"] = sum(n for op, n in ops.items()
+                                         if op.startswith(("IMAD.WIDE", "IMAD.HI")))
+            res[name]["calls"] = sum(n for op, n in ops.items() if op.startswith("CALL"))
     return {short_name(name): row for name, row in res.items()}
 
 

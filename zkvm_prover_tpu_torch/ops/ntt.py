@@ -171,6 +171,14 @@ def eval_poly_at_point_ext(coeffs_rev, point_ext):
     """Evaluate polynomials with bit-reversed base-field coefficients
     (n, W) at one ext point: sum_j c_j * z^bitrev(j), a (W, n) @ (n, 4)
     exact product (kernel K3). Returns (W, 4)."""
+    return eval_poly_at_points_ext(coeffs_rev, [point_ext])[0]
+
+
+def eval_poly_at_points_ext(coeffs_rev, points):
+    """`eval_poly_at_point_ext` at one or two ext points from one read of
+    the coefficients: their power tables side by side, (W, n) @ (n, 4k)
+    (kernel K3). Returns a list of (W, 4), one per point."""
     log_n = _log2(int(coeffs_rev.shape[0]))
-    pw = powers_bitrev_ext(point_ext, log_n).contiguous()
-    return mm.mont_matmul(coeffs_rev.contiguous(), pw, transpose_a=True)
+    pw = torch.cat([powers_bitrev_ext(z, log_n) for z in points], dim=1)
+    out = mm.mont_matmul(coeffs_rev.contiguous(), pw, transpose_a=True)
+    return [out[:, 4 * i:4 * i + 4] for i in range(len(points))]

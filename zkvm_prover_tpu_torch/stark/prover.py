@@ -73,7 +73,8 @@ def _deep_combine(trace_lde, chunk_lde, x, zeta, zeta_next,
              + sum_j g^(w+j) (t_j(x) - t_j(z g_H)) / (x - z g_H)
              + sum_k g^(2w+k) (q_k(x) - q_k(z)) / (x - z).
     Each column sum splits into a base x ext product over the LDE (kernel
-    K3) minus a constant sum over the opened values (python ints).
+    K3; the two trace sums share one read of trace_lde) minus a constant sum
+    over the opened values (python ints).
     trace_lde (m, w), chunk_lde (m, 8); zeta etc. numpy (4,) Montgomery;
     t_at_z / t_at_zn (w, 4), q_at_z (8, 4) numpy Montgomery."""
     dev = trace_lde.device
@@ -95,8 +96,9 @@ def _deep_combine(trace_lde, chunk_lde, x, zeta, zeta_next,
     x_ext = ext4.from_base(x)
     inv_xz = ext4.inv(ext4.sub(x_ext, bb.as_tensor(zeta, dev)))
     inv_xzn = ext4.inv(ext4.sub(x_ext, bb.as_tensor(zeta_next, dev)))
-    s1 = mm.mont_matmul(trace_lde, gammas[:w].contiguous())
-    s2 = mm.mont_matmul(trace_lde, gammas[w:2 * w].contiguous())
+    # both opened points' sums from one read of the trace: (m, w) @ (w, 8)
+    s12 = mm.mont_matmul(trace_lde, torch.cat([gammas[:w], gammas[w:2 * w]], dim=1))
+    s1, s2 = s12[:, :4], s12[:, 4:]
     s3 = mm.mont_matmul(chunk_lde, gammas[2 * w:].contiguous())
     a = ext4.sub(ext4.add(s1, s3), ext4.from_ints(ext_np.add(k1, k3), dev))
     b = ext4.sub(s2, ext4.from_ints(k2, dev))
@@ -197,8 +199,9 @@ def prove(
         ext_np.scale(ext_np.from_monty(zeta), g_h), dtype=np.uint64))
     zeta_t = bb.as_tensor(zeta, dev)
     zeta_next_t = bb.as_tensor(zeta_next, dev)
-    t_at_z = bb.to_numpy(ntt.eval_poly_at_point_ext(c_rev, zeta_t))
-    t_at_zn = bb.to_numpy(ntt.eval_poly_at_point_ext(c_rev, zeta_next_t))
+    # zeta and zeta * g_H from one read of the coefficients
+    t_at_z, t_at_zn = (bb.to_numpy(t) for t in
+                       ntt.eval_poly_at_points_ext(c_rev, [zeta_t, zeta_next_t]))
     q_at_z = np.concatenate(
         [bb.to_numpy(ntt.eval_poly_at_point_ext(cr, zeta_t))
          for cr in chunk_crevs], axis=0)  # (8, 4)
