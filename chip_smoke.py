@@ -23,9 +23,20 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      in the LDE (from the proof's start to its first row hash), at most 3
      compress launches per Merkle tree and at most 2 K1 launches per
      transform;
-  4. cross-device identity: a 2^10-row proof at fast_test_config() on cuda
-     and on cpu, equal in every field but `stat`;
-  5. the kernels line (JSON), the card line, and last the result line.
+  4. the machine cell: one `prove_machine` / `verify_machine` at
+     default_config() over Poseidon2Air (the phase-3 trace, its two bus
+     multiplicity columns set to 0), RangeCheckedAir (2^log_n values from
+     --seed in [0, 2^(log_n-2))) and RangeTableAir (2^(log_n-2) rows, which
+     receives them on the range bus), with the launch counts zeroed just
+     before and read just after: wall-clock, per-phase ms, peak memory,
+     launches per kernel (every kernel launched; at most one K3 rows launch
+     per (AIR, matrix) and one transposed call per (AIR, matrix or quotient
+     chunk)), verify (True) and a tampered claimed sum (False); then a warm
+     and a profiled machine proof;
+  5. cross-device identity: a 2^10-row proof at fast_test_config() and a
+     small machine proof (four AIRs, three heights, a logUp bus) on cuda
+     and on cpu, each equal in every field but `stat`;
+  6. the kernels line (JSON), the card line, and last the result line.
 The port imports no JAX; this script imports nothing of the JAX package.
 """
 
@@ -136,19 +147,25 @@ def check_kernels(log_n: int, width: int, seed: int):
     src_ntt = "zkvm_prover_tpu_torch/csrc/ntt.cu"
     rep_ntt = "zkvm_prover_tpu/ops/ntt_pallas.py:66"
     sizes = ntt_fused.pass_sizes(log_n)
-    for w in (width, 4):
-        x = random_field(gen, (n, w), dev)
-        # whole transforms: the LDE's inverse DIF and forward DIT
+
+    def transforms(ln, w):
+        """Whole transforms: the LDE's inverse DIF and forward DIT."""
+        x = random_field(gen, (1 << ln, w), dev)
         for inverse, dit in ((True, False), (False, True)):
             fn, plain = (ntt_fused.dit, ntt_fused.dit_plain) if dit else \
                 (ntt_fused.dif, ntt_fused.dif_plain)
-            err = max_err(fn(x, log_n, inverse), plain(x, log_n, inverse))
+            err = max_err(fn(x, ln, inverse), plain(x, ln, inverse))
             record("ntt_transform", src_ntt, rep_ntt,
-                   f"({n},{w}) {'dit' if dit else 'dif inv'}, {len(sizes)} passes",
-                   err, time_ms(lambda: fn(x, log_n, inverse)),
-                   time_ms(lambda: plain(x, log_n, inverse), reps=1, warmup=False),
-                   2 * n * w * 4 + n * 4, log_n * (n // 2) * w * MULS_PER_MODMUL,
-                   counter="ntt_pass")
+                   f"({1 << ln},{w}) {'dit' if dit else 'dif inv'}, "
+                   f"{len(ntt_fused.pass_sizes(ln))} passes",
+                   err, time_ms(lambda: fn(x, ln, inverse)),
+                   time_ms(lambda: plain(x, ln, inverse), reps=1, warmup=False),
+                   2 * (1 << ln) * w * 4 + (1 << ln) * 4,
+                   ln * (1 << (ln - 1)) * w * MULS_PER_MODMUL, counter="ntt_pass")
+
+    for w in (width, 4):
+        transforms(log_n, w)
+        x = random_field(gen, (n, w), dev)
         # each pass of the inverse DIF alone
         a = log_n
         for L in sizes:
@@ -185,11 +202,18 @@ def check_kernels(log_n: int, width: int, seed: int):
            time_ms(lde_plain, reps=1, warmup=False), 4 * n * width * 4 + 3 * n * 4,
            (3 * log_n * (n // 2) + 3 * n) * width * MULS_PER_MODMUL, counter="ntt_pass")
     del x
+    # the machine cell's narrow matrices (phase 4): RangeCheckedAir's trace
+    # and permutation trace, Poseidon2Air's permutation trace at 2^log_n;
+    # RangeTableAir's trace, permutation trace and quotient chunks below
+    for ln, w in MACHINE_K1:
+        transforms(log_n + ln, w)
     torch.cuda.empty_cache()
 
     src_p2 = "zkvm_prover_tpu_torch/csrc/poseidon2.cu"
-    # the trace, the quotient chunks and the largest FRI codeword
-    for r, c in ((m, width), (m, 8), (n, 4)):
+    # the trace, the quotient chunks and the largest FRI codeword; then the
+    # machine cell's leaves (matrices of one height side by side)
+    for r, c in ((m, width), (m, 8), (n, 4)) + tuple(
+            (2 << (log_n + ln), c) for ln, c in MACHINE_LEAVES):
         mat = random_field(gen, (r, c), dev)
         blocks = max(1, -(-c // p2.RATE))
         record("poseidon2_hash_rows", src_p2, "zkvm_prover_tpu/ops/poseidon2.py:225",
@@ -198,12 +222,14 @@ def check_kernels(log_n: int, width: int, seed: int):
                time_ms(lambda: p2.hash_rows_plain(mat), reps=1, warmup=False),
                r * c * 4 + r * 32, r * blocks * MODMULS_PER_PERM * MULS_PER_MODMUL)
         del mat
-    pairs = random_field(gen, (n, 16), dev)
-    record("poseidon2_compress", src_p2, "zkvm_prover_tpu/ops/poseidon2.py:248",
-           f"({n},16)", max_err(p2.compress16(pairs), p2.permute_plain(pairs)[:, :8]),
-           time_ms(lambda: p2.compress16(pairs)),
-           time_ms(lambda: p2.permute_plain(pairs)[:, :8], reps=1, warmup=False),
-           n * 96, n * MODMULS_PER_PERM * MULS_PER_MODMUL)
+    # one level; at 2^(log_n - 1) it is where the machine cell's lower tree joins
+    for s_ in (n, n >> 1):
+        pairs = random_field(gen, (s_, 16), dev)
+        record("poseidon2_compress", src_p2, "zkvm_prover_tpu/ops/poseidon2.py:248",
+               f"({s_},16)", max_err(p2.compress16(pairs), p2.permute_plain(pairs)[:, :8]),
+               time_ms(lambda: p2.compress16(pairs)),
+               time_ms(lambda: p2.permute_plain(pairs)[:, :8], reps=1, warmup=False),
+               s_ * 96, s_ * MODMULS_PER_PERM * MULS_PER_MODMUL)
     # every level of a tree over the trace's 2^(log_n+1) leaf digests
     lm = log_n + 1
     leaves = random_field(gen, (m, 8), dev)
@@ -230,7 +256,8 @@ def check_kernels(log_n: int, width: int, seed: int):
     src_mm = "zkvm_prover_tpu_torch/csrc/mont_matmul.cu"
     for transpose, r, c, k in ((False, m, width, 2), (False, m, width, 1),
                                (False, m, 8, 1), (True, n, width, 2),
-                               (True, n, width, 1), (True, n, 4, 1)):
+                               (True, n, width, 1), (True, n, 4, 1)) + tuple(
+            (t, (1 if t else 2) << (log_n + ln), c, k) for t, ln, c, k in MACHINE_K3):
         a = random_field(gen, (r, c), dev)
         b = random_field(gen, (r if transpose else c, 4 * k), dev)
         name = "mont_matmul_cols" if transpose else "mont_matmul_rows"
@@ -256,6 +283,21 @@ def check_kernels(log_n: int, width: int, seed: int):
     del a, b
     torch.cuda.empty_cache()
     return rows
+
+
+# The machine cell's new shapes, as offsets from log_n (phase 4): Poseidon2Air
+# (495 columns, 2 interactions: 12 permutation columns) and RangeCheckedAir
+# (1 column, 1 interaction: 8) at 2^log_n rows, RangeTableAir (2 columns, 1
+# interaction: 8) at 2^(log_n - 2).
+MACHINE_K1 = ((0, 1), (0, 12), (0, 8), (-2, 2), (-2, 8), (-2, 4))   # (rows, W)
+MACHINE_LEAVES = ((0, 496), (0, 20), (0, 16), (-2, 2), (-2, 8))     # LDE rows, W
+# (transposed, rows, W, k): DEEP sums (rows over the LDE, k = 2 for both
+# opened points, k = 1 for the quotient) and OOD openings (transposed, over
+# the coefficients)
+MACHINE_K3 = ((False, 0, 1, 2), (False, 0, 12, 2), (False, 0, 8, 2),
+              (False, -2, 2, 2), (False, -2, 8, 2), (False, -2, 8, 1),
+              (True, 0, 1, 2), (True, 0, 12, 2), (True, 0, 8, 2),
+              (True, -2, 2, 2), (True, -2, 8, 2), (True, -2, 4, 1))
 
 
 def launch_counts():
@@ -416,6 +458,136 @@ def proofs_equal(a, b, path="proof"):
         raise AssertionError(f"{path}: {a!r} != {b!r}")
 
 
+def machine_instances(trace, log_n: int, seed: int):
+    """The machine cell: Poseidon2Air on `trace` with its two bus
+    multiplicity columns set to 0 (in place; no AIR that sends on those
+    buses is ported), RangeCheckedAir on 2^log_n values from `seed` and
+    RangeTableAir at 2^(log_n - 2) rows receiving them."""
+    import numpy as np
+
+    from zkvm_prover_tpu_torch.models.lookup import RangeCheckedAir, RangeTableAir
+    from zkvm_prover_tpu_torch.models.poseidon2_air import MULT, MULT_FULL, Poseidon2Air
+    from zkvm_prover_tpu_torch.stark.machine import AirInstance
+
+    trace[:, MULT] = 0
+    trace[:, MULT_FULL] = 0
+    log_table = log_n - 2
+    values = np.random.default_rng(seed).integers(0, 1 << log_table, size=1 << log_n)
+    airs = [Poseidon2Air(), RangeCheckedAir(), RangeTableAir()]
+    traces = [trace, airs[1].generate_trace(values),
+              airs[2].generate_trace(log_table, values)]
+    return airs, [AirInstance(a, t, []) for a, t in zip(airs, traces)]
+
+
+def machine_cell(trace, log_n: int, seed: int, out_dir: str) -> dict:
+    """Phase 4: the machine cell proven, verified, tampered, warm, profiled."""
+    import torch
+
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import default_config
+
+    cfg = default_config()
+    airs, insts = machine_instances(trace, log_n, seed)
+    print(f"[4] machine cell: {[(type(a).__name__, i.trace.shape) for a, i in zip(airs, insts)]}",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    proof = machine.prove_machine(insts, cfg)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    phases = {k: v for k, v in proof.stat.items() if k.endswith("_ms")}
+    proof_peaks = {k: v for k, v in proof.stat.items() if k.endswith("_peak_bytes")}
+    print(f"[4] proved in {prove_s:.3f} s, peak {peak} bytes ({peak / 2**30:.2f} GiB)",
+          flush=True)
+    for key, val in phases.items():
+        print(f"      {key:24s} {val:10.1f} ms, running peak "
+              f"{proof.stat[key[:-3] + '_peak_bytes']} bytes")
+    print(f"[4] launches: {counts}", flush=True)
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the machine path: {missing}")
+    # K3: one rows launch per (AIR, matrix) -- trace, perm, quotient -- and
+    # one transposed call per (AIR, matrix or quotient chunk)
+    n_mats = sum(2 + (ov.perm_zeta is not None) + (ov.pre_zeta is not None)
+                 for ov in proof.opened)
+    n_cols = n_mats + len(proof.opened)  # + the second quotient chunk
+    k3_rows, k3_cols = counts["mont_matmul_rows"], counts["mont_matmul_cols"] // 2
+    print(f"[4] K3: {k3_rows} rows launches (at most {n_mats}), {k3_cols} transposed "
+          f"calls (at most {n_cols})", flush=True)
+    if k3_rows > n_mats or k3_cols > n_cols:
+        raise AssertionError("K3 read a matrix more than once per opened point set")
+    t0 = time.perf_counter()
+    ok = machine.verify_machine(airs, proof, cfg)
+    verify_s = time.perf_counter() - t0
+    bad = copy.deepcopy(proof)
+    cs = next(i for i, c in enumerate(bad.claimed_sums) if c is not None)
+    bad.claimed_sums[cs] = bad.claimed_sums[cs].copy()
+    bad.claimed_sums[cs][0] = (int(bad.claimed_sums[cs][0]) + 1) % 2013265921
+    tampered = machine.verify_machine(airs, bad, cfg)
+    print(f"[4] verify: {ok} in {verify_s:.3f} s; tampered claimed sum: {tampered}",
+          flush=True)
+    if not ok or tampered:
+        raise AssertionError("machine verification phase failed")
+    del proof, bad
+
+    t0 = time.perf_counter()
+    warm = machine.prove_machine(insts, cfg)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_phases = {k: v for k, v in warm.stat.items() if k.endswith("_ms")}
+    print(f"[4] warm proof in {warm_s:.3f} s: "
+          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in warm_phases.items()), flush=True)
+    del warm
+    prof = profile_proof(lambda: machine.prove_machine(insts, cfg),
+                         os.path.join(out_dir, "chip_smoke_machine_trace.json"))
+    print(f"[4] profiled machine proof: window {prof['window_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.4f}")
+    for name, row in prof["per_kernel"].items():
+        print(f"      {name:30s} launches {row['launches']:6d}  device ms {row['ms']:9.3f}")
+    print(f"[4] per shape (matched to the C calls: {prof['shapes_matched']}):")
+    for row in prof["per_shape"]:
+        print(f"      {row['kernel']:24s} {row['shape']:26s} launches {row['launches']:4d}"
+              f"  device ms {row['ms']:8.3f}")
+    print(f"[4] compress launches per Merkle tree: {prof['compress_launches_per_tree']}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return {"prove_s": prove_s, "verify_s": verify_s, "peak_bytes": peak,
+            "phases_ms": phases,
+            "phase_peak_bytes": proof_peaks, "launches": counts, "k3_rows": k3_rows,
+            "k3_cols_calls": k3_cols, "tampered_claimed_sum": tampered,
+            "warm_prove_s": warm_s, "warm_phases_ms": warm_phases,
+            "profile": {k: v for k, v in prof.items() if k != "lde_window"}}
+
+
+def small_machine_cuda_equals_cpu(seed: int):
+    """Four AIRs at three heights with a logUp bus, at fast_test_config(),
+    proven on cuda and on cpu: equal in every field but `stat`."""
+    import numpy as np
+
+    from zkvm_prover_tpu_torch.models.doubling import DoublingAir
+    from zkvm_prover_tpu_torch.models.fibonacci import FibonacciAir
+    from zkvm_prover_tpu_torch.models.lookup import RangeCheckedAir, RangeTableAir
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+
+    values = np.random.default_rng(seed).integers(0, 1 << 6, size=1 << 7)
+    fib, dbl = FibonacciAir(), DoublingAir()
+    (t_fib, pv_fib), (t_dbl, pv_dbl) = fib.generate_trace(5), dbl.generate_trace(4)
+    airs = [RangeTableAir(), RangeCheckedAir(), fib, dbl]
+    insts = [machine.AirInstance(airs[0], airs[0].generate_trace(6, values), []),
+             machine.AirInstance(airs[1], airs[1].generate_trace(values), []),
+             machine.AirInstance(fib, t_fib, pv_fib), machine.AirInstance(dbl, t_dbl, pv_dbl)]
+    p_cuda = machine.prove_machine(insts, fast_test_config(), device="cuda")
+    p_cpu = machine.prove_machine(insts, fast_test_config(), device="cpu")
+    proofs_equal(p_cuda, p_cpu)
+    if not machine.verify_machine(airs, p_cuda, fast_test_config()):
+        raise AssertionError("the small machine proof does not verify")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=18,
@@ -559,19 +731,28 @@ def main() -> int:
     print(f"[3] compress launches per Merkle tree: {per_tree}", flush=True)
     if not per_tree or max(per_tree) > 3:
         raise AssertionError("a Merkle tree took more than 3 compress launches")
+    torch.cuda.empty_cache()
+
+    # 4. the machine cell, on the same Poseidon2 inputs
+    report["machine"] = machine_cell(trace, args.log_n, args.seed,
+                                     os.path.dirname(args.out) or ".")
     del trace
     torch.cuda.empty_cache()
 
-    # 4. cross-device identity
+    # 5. cross-device identity
     small = poseidon2_trace(10, args.seed + 1)
     p_cuda = prover.prove(air, small, [], fast_test_config(), device="cuda")
     p_cpu = prover.prove(air, small, [], fast_test_config(), device="cpu")
     proofs_equal(p_cuda, p_cpu)
     if not verifier.verify(air, p_cuda, fast_test_config()):
         raise AssertionError("2^10 proof does not verify")
-    print("[4] 2^10-row proofs on cuda and cpu are identical", flush=True)
+    print("[5] 2^10-row proofs on cuda and cpu are identical", flush=True)
+    small_machine_cuda_equals_cpu(args.seed + 2)
+    print("[5] small machine proofs (4 AIRs, 3 heights, a logUp bus) on cuda and cpu "
+          "are identical", flush=True)
 
-    # 5. the kernels line: per kernel, its largest main-path shape
+    # 6. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the two paths (single-AIR proof and machine cell)
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -581,7 +762,9 @@ def main() -> int:
     for name, row in kernels.items():
         entry = {key: row[key] for key in (
             "name", "route", "source", "replaces")}
-        entry.update(launches=counts[row["counter"]],
+        by_path = {"single_air": counts[row["counter"]],
+                   "machine": report["machine"]["launches"][row["counter"]]}
+        entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                      bound_by=row["bound_by"], library_ms=None,

@@ -285,3 +285,79 @@ def test_small_proof_cuda_equals_cpu(cuda):
     assert a.trace_root.tolist() == b.trace_root.tolist()
     assert a.fri_proof.commitments[-1].tolist() == b.fri_proof.commitments[-1].tolist()
     assert a.fri_proof.pow_witness == b.fri_proof.pow_witness
+
+
+# The machine cell's shapes (chip_smoke.py phase 4) at full size: RangeCheckedAir
+# (1 column) and the permutation traces (12 and 8 columns) at 2^18 rows,
+# RangeTableAir (2 columns), its permutation trace (8) and quotient chunks (4)
+# at 2^16; the leaves of each height side by side.
+@pytest.mark.parametrize("log_n,w", [(18, 1), (18, 12), (18, 8), (16, 2), (16, 8), (16, 4)])
+def test_machine_ntt_shapes(cuda, log_n, w):
+    x = _rand(log_n + 7 * w, (1 << log_n, w), cuda)
+    _same(ntt_fused.dif(x, log_n, True), ntt_fused.dif_plain(x, log_n, True))
+    _same(ntt_fused.dit(x, log_n, False), ntt_fused.dit_plain(x, log_n, False))
+
+
+@pytest.mark.parametrize("rows,cols", [(1 << 19, 496), (1 << 19, 20), (1 << 19, 16),
+                                       (1 << 17, 2), (1 << 17, 8)])
+def test_machine_hash_rows_shapes(cuda, rows, cols):
+    m = _rand(cols, (rows, cols), cuda)
+    _same(p2.hash_rows(m), p2.hash_rows_plain(m))
+
+
+def test_machine_compress_join(cuda):
+    """Where the 2^17 tree joins the 2^19 one: compress(level, leaf digests)."""
+    a, b = _rand(1, (1 << 17, 8), cuda), _rand(2, (1 << 17, 8), cuda)
+    _same(p2.compress(a, b), p2.compress_plain(a, b))
+
+
+@pytest.mark.parametrize("transpose_a,r,c,k", [
+    (False, 1 << 19, 1, 2), (False, 1 << 19, 12, 2), (False, 1 << 19, 8, 2),
+    (False, 1 << 17, 2, 2), (False, 1 << 17, 8, 2), (False, 1 << 17, 8, 1),
+    (True, 1 << 18, 1, 2), (True, 1 << 18, 12, 2), (True, 1 << 18, 8, 2),
+    (True, 1 << 16, 2, 2), (True, 1 << 16, 8, 2), (True, 1 << 16, 4, 1)])
+def test_machine_mont_matmul_shapes(cuda, transpose_a, r, c, k):
+    a = _rand(r + c, (r, c), cuda)
+    b = _rand(c + k, (r if transpose_a else c, 4 * k), cuda)
+    _same(mm.mont_matmul(a, b, transpose_a), mm.mont_matmul_plain(a, b, transpose_a))
+
+
+def _proofs_equal(a, b):
+    """Field by field, `stat` (timings) excepted."""
+    if hasattr(a, "__dataclass_fields__"):
+        for f in a.__dataclass_fields__:
+            if f != "stat":
+                _proofs_equal(getattr(a, f), getattr(b, f))
+    elif isinstance(a, dict):
+        assert sorted(a) == sorted(b)
+        for key in a:
+            _proofs_equal(a[key], b[key])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _proofs_equal(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape and (a == b).all()
+    else:
+        assert a == b
+
+
+def test_small_machine_proof_cuda_equals_cpu(cuda):
+    """Mixed heights (2^7, 2^6, 2^5, 2^4), a logUp bus and plain AIRs."""
+    from zkvm_prover_tpu_torch.models.doubling import DoublingAir
+    from zkvm_prover_tpu_torch.models.fibonacci import FibonacciAir
+    from zkvm_prover_tpu_torch.models.lookup import RangeCheckedAir, RangeTableAir
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+
+    values = np.random.default_rng(13).integers(0, 1 << 6, size=1 << 7)
+    fib, dbl = FibonacciAir(), DoublingAir()
+    (t_fib, pv_fib), (t_dbl, pv_dbl) = fib.generate_trace(5), dbl.generate_trace(4)
+    airs = [RangeTableAir(), RangeCheckedAir(), fib, dbl]
+    insts = [machine.AirInstance(airs[0], airs[0].generate_trace(6, values), []),
+             machine.AirInstance(airs[1], airs[1].generate_trace(values), []),
+             machine.AirInstance(fib, t_fib, pv_fib), machine.AirInstance(dbl, t_dbl, pv_dbl)]
+    a = machine.prove_machine(insts, fast_test_config(), device=cuda)
+    b = machine.prove_machine(insts, fast_test_config(), device="cpu")
+    _proofs_equal(a, b)
+    assert machine.verify_machine(airs, a, fast_test_config())

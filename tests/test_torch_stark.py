@@ -106,11 +106,47 @@ def _tampered(proof, what):
     elif what == "ragged_fri_row":
         op = bad.fri_proof.rounds[0].openings[0][0]
         op.rows[0] = op.rows[0][:3]
+    elif what == "index_2_64":  # key and indices agree, so the cast is reached
+        qo = bad.query_openings.pop(next(iter(bad.query_openings)))
+        qo.index = qo.trace.index = qo.quotient.index = 2 ** 64
+        bad.query_openings[2 ** 64] = qo
+    elif what == "query_key_2_64":
+        bad.query_openings[2 ** 64] = bad.query_openings.pop(next(iter(bad.query_openings)))
+    elif what == "row_2_70":
+        qo = next(iter(bad.query_openings.values()))
+        qo.trace.rows[0] = _big(qo.trace.rows[0], 2 ** 70)
+    elif what == "fri_row_2_70":
+        op = bad.fri_proof.rounds[0].openings[0][0]
+        op.rows[0] = _big(op.rows[0], 2 ** 70)
+    elif what == "root_2_70":
+        bad.trace_root = _big(bad.trace_root, 2 ** 70)
+    elif what == "fri_commitment_2_70":
+        bad.fri_proof.commitments[0] = _big(bad.fri_proof.commitments[0], 2 ** 70)
+    elif what == "final_poly_2_70":
+        bad.fri_proof.final_poly = _big(bad.fri_proof.final_poly, 2 ** 70)
+    elif what == "ood_2_70":
+        bad.opened_trace_zeta = _big(bad.opened_trace_zeta, 2 ** 70)
+    elif what == "row_plus_2_32":
+        qo = next(iter(bad.query_openings.values()))
+        row = qo.trace.rows[0].astype(np.uint64)
+        row[0] += 2 ** 32
+        qo.trace.rows[0] = row
     return bad
 
 
+def _big(arr, value):
+    """arr as an object array whose first entry is `value` (any python int)."""
+    out = np.asarray(arr).astype(object)
+    out.reshape(-1)[0] = value
+    return out
+
+
 TAMPER = ["public_value", "ood_opening", "quotient_opening", "trace_root",
-          "query_row", "fri_root", "pow_witness", "ragged_row", "ragged_fri_row"]
+          "query_row", "fri_root", "pow_witness", "ragged_row", "ragged_fri_row",
+          # out-of-range integers: False, not OverflowError; v + 2^32 must not
+          # alias v through a uint32 cast
+          "index_2_64", "query_key_2_64", "row_2_70", "fri_row_2_70", "root_2_70",
+          "fri_commitment_2_70", "final_poly_2_70", "ood_2_70", "row_plus_2_32"]
 
 
 @pytest.mark.parametrize("what", TAMPER)

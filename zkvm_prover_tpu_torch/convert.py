@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .ops import poseidon2 as p2
-from .stark import fri, merkle
+from .stark import fri, machine, merkle
 from .stark.prover import QueryOpening, StarkProof
 
 
@@ -36,10 +36,9 @@ def _opening(obj) -> merkle.Opening:
                           siblings=[_u32(s) for s in obj.siblings])
 
 
-def proof_from_numpy(obj) -> StarkProof:
-    """The port's StarkProof from a reference-shaped proof object."""
-    f = obj.fri_proof
-    fri_proof = fri.FriProof(
+def fri_proof_from_numpy(f) -> fri.FriProof:
+    """The port's FriProof from a reference-shaped one."""
+    return fri.FriProof(
         commitments=[_u32(c) for c in f.commitments],
         final_poly=_u32(f.final_poly),
         pow_witness=int(f.pow_witness),
@@ -48,6 +47,11 @@ def proof_from_numpy(obj) -> StarkProof:
                 for r in f.rounds],
         query_indices=[int(i) for i in f.query_indices],
     )
+
+
+def proof_from_numpy(obj) -> StarkProof:
+    """The port's StarkProof from a reference-shaped proof object."""
+    fri_proof = fri_proof_from_numpy(obj.fri_proof)
     return StarkProof(
         log_n=int(obj.log_n),
         width=int(obj.width),
@@ -64,5 +68,35 @@ def proof_from_numpy(obj) -> StarkProof:
                                    quotient=_opening(qo.quotient))
             for pos, qo in obj.query_openings.items()
         },
+        stat=dict(getattr(obj, "stat", {}) or {}),
+    )
+
+
+def _optional(x, fn):
+    return None if x is None else fn(x)
+
+
+def machine_proof_from_numpy(obj) -> machine.MachineProof:
+    """The port's MachineProof from a reference-shaped machine proof."""
+    def roots(d):
+        return {int(lm): _u32(r) for lm, r in d.items()}
+
+    return machine.MachineProof(
+        meta=[(int(log_n), int(w), [int(v) for v in pvs]) for log_n, w, pvs in obj.meta],
+        trace_roots=roots(obj.trace_roots),
+        quotient_roots=roots(obj.quotient_roots),
+        perm_roots=roots(obj.perm_roots),
+        pre_roots=roots(obj.pre_roots),
+        claimed_sums=[_optional(c, _u32) for c in obj.claimed_sums],
+        opened=[machine.OpenedValues(**{
+            name: _optional(getattr(ov, name), _u32)
+            for name in machine.OpenedValues.__dataclass_fields__}) for ov in obj.opened],
+        fri_proof=fri_proof_from_numpy(obj.fri_proof),
+        query_openings={
+            int(lm): {int(pos): machine.QueryOpening(
+                trace=_opening(qo.trace), quotient=_opening(qo.quotient),
+                perm=_optional(qo.perm, _opening), pre=_optional(qo.pre, _opening))
+                for pos, qo in by_pos.items()}
+            for lm, by_pos in obj.query_openings.items()},
         stat=dict(getattr(obj, "stat", {}) or {}),
     )

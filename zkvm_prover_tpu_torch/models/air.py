@@ -8,6 +8,9 @@ The same constraint-definition code runs in two modes:
   no stack of all constraint columns is ever held.
 - `PointBuilder`: values are extension elements at the out-of-domain point
   zeta, as canonical python ints (the verifier's re-evaluation, host only).
+- `TraceBuilder`: an `LdeBuilder` over the raw trace (blowup 1, exact 0/1
+  selectors) that keeps only the declared bus interactions: the machine
+  prover reads each interaction's field and multiplicity vectors from it.
 
 An Air subclass defines `width`, optional `num_public_values`, and
 `eval(builder)`; all arithmetic goes through the builder. Constraint degree
@@ -38,13 +41,20 @@ class Air:
     def eval(self, b: "AirBuilder") -> None:
         raise NotImplementedError
 
+    def preprocessed_trace(self):
+        """Verifier-known fixed columns: a canonical uint32 (n, width) numpy
+        array, or None. The machine prover commits them on their own; the
+        verifier recomputes that commitment from this method."""
+        return None
+
     def generate_trace(self, *args, **kwargs) -> np.ndarray:
         raise NotImplementedError
 
 
 class Interaction:
-    """One logUp bus interaction declared by an AIR during eval() (recorded;
-    the single-AIR prover does not prove buses)."""
+    """One logUp bus interaction declared by an AIR during eval(): a message
+    (`fields`) sent or received on `bus` with multiplicity `mult`. The
+    machine prover proves buses; the single-AIR prover ignores them."""
 
     def __init__(self, bus: int, fields, mult, is_send: bool):
         self.bus = bus
@@ -60,6 +70,12 @@ class AirBuilder:
         raise NotImplementedError
 
     def next(self, col: int):
+        raise NotImplementedError
+
+    def preprocessed(self, col: int):
+        raise NotImplementedError
+
+    def preprocessed_next(self, col: int):
         raise NotImplementedError
 
     def public_value(self, i: int):
@@ -147,14 +163,18 @@ class LdeBuilder(AirBuilder):
     """Evaluation over the LDE domain (the prover's quotient pass).
 
     lde: (m, w) int32 tensor; columns are read from one (w, m) contiguous
-    copy, and next(col) rolls one column by `blowup` rows. sels: dict of (m,)
-    tensors; public_values: Montgomery ints. With `alpha` (a (4,) ext
-    tensor), constraints fold into `folded` = sum_i alpha^i c_i, (m, 4), as
-    they arrive; without it they are kept in `constraints`.
+    copy, and next(col) rolls one column by `blowup` rows; pre_lde, if given,
+    holds the preprocessed columns alike. sels: dict of (m,) tensors;
+    public_values: Montgomery ints. With `alpha` (a (4,) ext tensor),
+    constraints fold into `folded` = sum_i alpha^i c_i, (m, 4), as they
+    arrive (`assert_zero_ext` folds an (m, 4) extension constraint); without
+    it they are kept in `constraints`.
     """
 
-    def __init__(self, lde, blowup: int, sels, public_values, alpha=None):
+    def __init__(self, lde, blowup: int, sels, public_values, alpha=None,
+                 pre_lde=None):
         self._cols = lde.t().contiguous()
+        self._pre = None if pre_lde is None else pre_lde.t().contiguous()
         self._blowup = blowup
         self._sels = sels
         self._pvs = [int(v) for v in public_values]
@@ -171,6 +191,12 @@ class LdeBuilder(AirBuilder):
     def next(self, col):
         return torch.roll(self._cols[col], -self._blowup)
 
+    def preprocessed(self, col):
+        return self._pre[col]
+
+    def preprocessed_next(self, col):
+        return torch.roll(self._pre[col], -self._blowup)
+
     def public_value(self, i):
         return self._pvs[i]
 
@@ -186,28 +212,67 @@ class LdeBuilder(AirBuilder):
     def constant(self, v):
         return bb.to_monty_int(int(v) % bb.P)
 
-    def assert_zero(self, expr):
-        if self._alpha is None:
-            self._constraints.append(expr)
-            return
+    def _fold(self, term_of):
         i = self.num_constraints
         if self._alpha_pows is None or i >= self._alpha_pows.shape[0]:
             size = 256 if self._alpha_pows is None else 2 * self._alpha_pows.shape[0]
             self._alpha_pows = ext4.powers(self._alpha, size)
-        term = bb.mul(expr[:, None], self._alpha_pows[i])
+        term = term_of(self._alpha_pows[i])
         self.folded = term if self.folded is None else bb.add(self.folded, term)
         self.num_constraints += 1
+
+    def assert_zero(self, expr):
+        if self._alpha is None:
+            self._constraints.append(expr)
+        else:
+            self._fold(lambda a: bb.mul(expr[:, None], a))
+
+    def assert_zero_ext(self, expr):
+        """An extension-valued (m, 4) constraint (the logUp constraints),
+        next on the same alpha ladder."""
+        if self._alpha is None:
+            self._constraints.append(expr)
+        else:
+            self._fold(lambda a: ext4.mul(expr, a))
+
+
+class TraceBuilder(LdeBuilder):
+    """Evaluation over the raw trace domain H (blowup 1) that keeps only the
+    interactions: their field and multiplicity vectors, (n,) tensors, feed
+    the logUp permutation trace. Selectors are exact 0/1 indicator rows;
+    constraints are dropped as they arrive.
+
+    trace_m: (n, w) Montgomery int32 tensor; pre_m alike, or None."""
+
+    def __init__(self, trace_m, public_values, pre_m=None):
+        n = int(trace_m.shape[0])
+        dev = trace_m.device
+        first = torch.zeros(n, dtype=bb.DTYPE, device=dev)
+        first[0] = bb.ONE
+        last = torch.zeros(n, dtype=bb.DTYPE, device=dev)
+        last[-1] = bb.ONE
+        transition = torch.full((n,), bb.ONE, dtype=bb.DTYPE, device=dev)
+        transition[-1] = 0
+        sels = {"first": first, "last": last, "transition": transition}
+        super().__init__(trace_m, 1, sels, public_values, pre_lde=pre_m)
+
+    def assert_zero(self, expr):
+        pass
 
 
 class PointBuilder(AirBuilder):
     """Extension-field evaluation at one out-of-domain point (verifier).
 
-    local/next: per column canonical ext values (4 python ints); sels: dict
-    of canonical ext values; public_values: canonical ints."""
+    local/next (and pre/pre_next, the preprocessed columns, if any): per
+    column canonical ext values (4 python ints); sels: dict of canonical ext
+    values; public_values: canonical ints."""
 
-    def __init__(self, local_ext, next_ext, sels_ext, public_values):
+    def __init__(self, local_ext, next_ext, sels_ext, public_values,
+                 pre_ext=None, pre_next_ext=None):
         self._local = local_ext
         self._next = next_ext
+        self._pre = pre_ext
+        self._pre_next = pre_next_ext
         self._sels = sels_ext
         self._pvs = [int(v) for v in public_values]
         self._constraints: List[Any] = []
@@ -218,6 +283,12 @@ class PointBuilder(AirBuilder):
 
     def next(self, col):
         return self._next[col]
+
+    def preprocessed(self, col):
+        return self._pre[col]
+
+    def preprocessed_next(self, col):
+        return self._pre_next[col]
 
     def public_value(self, i):
         return ext_np.from_base(self._pvs[i])

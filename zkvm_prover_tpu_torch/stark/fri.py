@@ -9,6 +9,9 @@ The reference's `zkvm_prover_tpu/stark/fri.py` on tensors:
   verifier re-derives at every queried position from the outer openings.
 - Every later round's codeword is Merkle-committed as an (m_i, 4) matrix;
   queries open index and sibling index + m_i/2.
+- Multi-height proofs inject lower codewords: when the fold reaches size
+  m', the codeword of height m' (on the coset the fold chain gives that
+  size) is added to the folded one before it is committed.
 
 The fold is plain torch; the commitments run through kernel K2. The
 verifier is host code (python ints and numpy).
@@ -69,10 +72,14 @@ def fold_round(codeword, log_m: int, shift_int: int, beta):
 
 
 def prove(codeword, log_m: int, shift_int: int, config: FriConfig,
-          challenger: Challenger, mark=None) -> FriProof:
+          challenger: Challenger, mark=None, injected=None) -> FriProof:
     """FRI commit + query phases; codeword (m, 4) on the coset shift*G.
-    mark(name), if given, is called as the fold, grind and query phases end."""
+    injected: optional {log_m': (m', 4) codeword}, each added into the fold
+    when the round size reaches m'; it must live on the coset
+    shift^(2^(log_m - log_m')) * G_m'. mark(name), if given, is called as
+    the fold, grind and query phases end."""
     mark = mark or (lambda name: None)
+    injected = injected or {}
     commits: List[merkle.MerkleTree] = []
     roots: List[np.ndarray] = []
     cw = codeword
@@ -95,6 +102,8 @@ def prove(codeword, log_m: int, shift_int: int, config: FriConfig,
         cw = fold_round(cw, lm, sh, beta)
         sh = (sh * sh) % bb.P
         lm -= 1
+        if lm in injected:
+            cw = bb.add(cw, injected[lm])
 
     final_vals = bb.to_numpy(cw)
     challenger.observe_slice(final_vals)
@@ -128,8 +137,15 @@ P = bb.P
 
 def verify(proof: FriProof, log_m: int, shift_int: int, config: FriConfig,
            challenger: Challenger, initial_values) -> bool:
-    """Verify a FRI proof. initial_values(q) -> canonical (4,) value of the
-    round-0 (derived, uncommitted) codeword at index q."""
+    """Verify a FRI proof. initial_values is either a callable, q ->
+    canonical (4,) value of the round-0 (derived, uncommitted) codeword at
+    index q, or a dict {log_m': callable}: its log_m entry is the round-0
+    codeword (mandatory) and every other entry a codeword injected into the
+    fold at size 2^log_m', as the prover did."""
+    derived = ({log_m: initial_values} if callable(initial_values)
+               else dict(initial_values or {}))
+    if log_m not in derived:
+        return False
     log_final_domain = config.log_final_poly_len + config.log_blowup
     n_rounds = log_m - log_final_domain
     if len(proof.commitments) != max(n_rounds - 1, 0):
@@ -195,14 +211,16 @@ def verify(proof: FriProof, log_m: int, shift_int: int, config: FriConfig,
             q %= m_r
             qq = q % half
             if r == 0:
-                lo = [int(v) % P for v in initial_values(qq)]
-                hi = [int(v) % P for v in initial_values(qq + half)]
+                lo = [int(v) % P for v in derived[lm](qq)]
+                hi = [int(v) % P for v in derived[lm](qq + half)]
             else:
                 op_lo, op_hi = proof.rounds[r - 1].openings[qi]
                 lo = ext_np.from_monty(np.asarray(op_lo.rows[0]).reshape(-1))
                 hi = ext_np.from_monty(np.asarray(op_hi.rows[0]).reshape(-1))
                 if len(lo) != 4 or len(hi) != 4:
                     return False
+                if lm in derived:  # a codeword was injected at this size
+                    value = ext_np.add(value, derived[lm](q))
                 if value != (lo if q < half else hi):
                     return False
             w = bb.two_adic_generator_int(lm)

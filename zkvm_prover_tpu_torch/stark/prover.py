@@ -106,19 +106,30 @@ def _deep_combine(trace_lde, chunk_lde, x, zeta, zeta_next,
 
 
 class _Phases:
-    """Wall-clock per phase; each phase ends in a device synchronize."""
+    """Wall-clock per phase; each phase ends in a device synchronize, and a
+    name marked again (a phase run once per AIR) adds up. On the card each
+    mark also reads the running peak of allocated bytes
+    (`torch.cuda.max_memory_allocated`, never reset here): the phase where
+    it rises is where the peak was reached."""
 
     def __init__(self, device):
         self.device = device
         self.times = {}
+        self.peaks = {}
         self._t = time.perf_counter()
 
     def mark(self, name):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            self.peaks[name] = torch.cuda.max_memory_allocated(self.device)
         now = time.perf_counter()
-        self.times[name] = (now - self._t) * 1e3
+        self.times[name] = self.times.get(name, 0.0) + (now - self._t) * 1e3
         self._t = now
+
+    def stat(self):
+        out = {f"{k}_ms": v for k, v in self.times.items()}
+        out.update({f"{k}_peak_bytes": v for k, v in self.peaks.items()})
+        return out
 
 
 def prove(
@@ -236,7 +247,7 @@ def prove(
 
     stat = {"proving_time_mills": (time.perf_counter() - t_start) * 1e3,
             "trace_height": n, "trace_width": w}
-    stat.update({f"{k}_ms": v for k, v in phases.times.items()})
+    stat.update(phases.stat())
     return StarkProof(
         log_n=log_n,
         width=w,

@@ -5,7 +5,9 @@ openings are tiny, so the verifier replays the transcript and checks the
 out-of-domain constraint identity (DEEP-ALI), the Merkle paths (numpy
 Poseidon2) and the FRI folds with exact python-int arithmetic. No tensor and
 no device is involved. It accepts any proof object with the reference's
-attribute names, the reference's own proofs included.
+attribute names, the reference's own proofs included. A proof that is not
+well formed (`stark/wellformed.py`: shapes, integer ranges, counts) is
+rejected before the transcript replay.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 from ..fields import babybear as bb
 from ..models.air import Air, PointBuilder, LOG_QUOTIENT_DEGREE
 from ..utils import ext_np
-from . import domain, fri, merkle
+from . import domain, fri, merkle, wellformed
 from .challenger import Challenger
 from .config import StarkConfig
 from .prover import _observe_opened
@@ -26,8 +28,39 @@ P = bb.P
 _canon_ext = ext_np.from_monty
 
 
+def fold_at_point(constraints, alpha_c):
+    """sum_i alpha^i c_i over canonical extension values."""
+    acc = [0, 0, 0, 0]
+    apow = ext_np.from_base(1)
+    for cons in constraints:
+        acc = ext_np.add(acc, ext_np.mul(apow, cons))
+        apow = ext_np.mul(apow, alpha_c)
+    return acc
+
+
+def quotient_at_point(q_at_z, shift: int, log_n: int, log_m: int, zeta_c):
+    """q(zeta) from the chunk openings (canonical, 4 per chunk, one per
+    base column): sum_r L_r(zeta) chunk_r(zeta) with
+    L_r = (zeta^n - v_{1-r}) / (v_r - v_{1-r}), v_r = (shift w_m^r)^n."""
+    n = 1 << log_n
+    w_m_int = bb.two_adic_generator_int(log_m)
+    n_chunks = 1 << LOG_QUOTIENT_DEGREE
+    v = [pow((shift * pow(w_m_int, r, P)) % P, n, P) for r in range(n_chunks)]
+    zeta_n = ext_np.exp(zeta_c, n)
+    q_zeta = [0, 0, 0, 0]
+    for r in range(n_chunks):
+        other = 1 - r
+        l_num = ext_np.sub(zeta_n, ext_np.from_base(v[other]))
+        l_r = ext_np.scale(l_num, pow((v[r] - v[other]) % P, P - 2, P))
+        chunk_val = ext_np.from_base_cols(q_at_z[4 * r:4 * r + 4])
+        q_zeta = ext_np.add(q_zeta, ext_np.mul(l_r, chunk_val))
+    return q_zeta
+
+
 def verify(air: Air, proof, config: Optional[StarkConfig] = None) -> bool:
     config = config or StarkConfig()
+    if not wellformed.stark_proof_ok(proof, air, config):
+        return False
     log_n = int(proof.log_n)
     n = 1 << log_n
     log_blowup = config.log_blowup
@@ -40,10 +73,6 @@ def verify(air: Air, proof, config: Optional[StarkConfig] = None) -> bool:
     t_z = np.asarray(proof.opened_trace_zeta)
     t_zn = np.asarray(proof.opened_trace_zeta_next)
     opened_q = np.asarray(proof.opened_quotient)
-    if (w != air.width or t_z.shape != (w, 4) or t_zn.shape != (w, 4)
-            or opened_q.shape != (n_chunks, 4, 4)
-            or len(proof.public_values) != air.num_public_values):
-        return False
 
     # ---- transcript replay ------------------------------------------------
     ch = Challenger()
@@ -70,29 +99,8 @@ def verify(air: Air, proof, config: Optional[StarkConfig] = None) -> bool:
     pb = PointBuilder(t_at_z, t_at_zn, sels_z,
                       [int(v) % P for v in proof.public_values])
     air.eval(pb)
-    acc = [0, 0, 0, 0]
-    apow = ext_np.from_base(1)
-    for cons in pb.constraints:
-        acc = ext_np.add(acc, ext_np.mul(apow, cons))
-        apow = ext_np.mul(apow, alpha_c)
-    q_expected = ext_np.mul(acc, sels_z["inv_zh"])
-
-    # q(zeta) from the chunk openings: sum_r L_r(zeta) chunk_r(zeta),
-    # L_r = (zeta^n - v_{1-r}) / (v_r - v_{1-r}), v_r = (g w_m^r)^n
-    v = [pow((g * pow(w_m_int, r, P)) % P, n, P) for r in range(n_chunks)]
-    zeta_n = ext_np.exp(zeta_c, n)
-    q_zeta = [0, 0, 0, 0]
-    for r in range(n_chunks):
-        other = 1 - r
-        l_num = ext_np.sub(zeta_n, ext_np.from_base(v[other]))
-        l_r = ext_np.scale(l_num, pow((v[r] - v[other]) % P, P - 2, P))
-        chunk_val = [0, 0, 0, 0]
-        for c in range(4):  # ext basis e_c = x^c
-            basis = [0, 0, 0, 0]
-            basis[c] = 1
-            chunk_val = ext_np.add(chunk_val,
-                                   ext_np.mul(q_at_z[4 * r + c], basis))
-        q_zeta = ext_np.add(q_zeta, ext_np.mul(l_r, chunk_val))
+    q_expected = ext_np.mul(fold_at_point(pb.constraints, alpha_c), sels_z["inv_zh"])
+    q_zeta = quotient_at_point(q_at_z, g, log_n, log_n + log_blowup, zeta_c)
     if not ext_np.eq(q_expected, q_zeta):
         return False
 
@@ -133,9 +141,7 @@ def verify(air: Air, proof, config: Optional[StarkConfig] = None) -> bool:
         qo = proof.query_openings.get(idx)
         if qo is None:
             raise KeyError(f"missing query opening at {idx}")
-        trow, qrow = np.asarray(qo.trace.rows[0]), np.asarray(qo.quotient.rows[0])
-        if trow.shape != (w,) or qrow.shape != (4 * n_chunks,):
-            raise KeyError(f"malformed query opening at {idx}")
+        trow, qrow = qo.trace.rows[0], qo.quotient.rows[0]
         x = (g * pow(w_m_int, idx, P)) % P
         inv_xz = ext_np.inv(ext_np.sub(ext_np.from_base(x), zeta_c))
         inv_xzg = ext_np.inv(ext_np.sub(ext_np.from_base(x), zeta_g))

@@ -73,6 +73,17 @@ def eq(a, b) -> bool:
     return all(int(a[i]) % P == int(b[i]) % P for i in range(4))
 
 
+def from_base_cols(vals):
+    """An extension value opened as 4 base columns (4 ext values, one per
+    basis element x^c) -> sum_c vals[c] * x^c."""
+    acc = [0, 0, 0, 0]
+    for c in range(4):
+        basis = [0, 0, 0, 0]
+        basis[c] = 1
+        acc = add(acc, mul(vals[c], basis))
+    return acc
+
+
 def powers(base, n: int):
     out = [from_base(1)]
     for _ in range(n - 1):
