@@ -33,16 +33,29 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      per (AIR, matrix) and one transposed call per (AIR, matrix or quotient
      chunk)), verify (True) and a tampered claimed sum (False); then a warm
      and a profiled machine proof;
-  5. cross-device identity: a 2^10-row proof at fast_test_config() and a
-     small machine proof (four AIRs, three heights, a logUp bus) on cuda
-     and on cpu, each equal in every field but `stat`;
-  6. the kernels line (JSON), the card line, and last the result line.
+  5. cross-device identity: a 2^10-row proof at fast_test_config(), a
+     small machine proof (four AIRs, three heights, a logUp bus) and the
+     small rv32 proof (bench_guest_program(1, 4): 124 cycles, 18 AIRs) on
+     cuda and on cpu, each equal in every field but `stat`;
+  6. the rv32 machine path: the native executor built (g++), the benchmark
+     guest bench_guest_program(8, 256) run (24,729 cycles) and traced (18
+     AIRs); every kernel shape of its proof checked against its plain
+     version; then `prove_machine` at default_config() with the launch
+     counts zeroed just before and read just after, and every C call of
+     the proof at a checked shape: guest_cycles, tracegen_s, proof_wall_s,
+     proving_khz, per-phase ms, peak memory, the values `ood` observed,
+     verify_wall_s (True), a tampered public value (False), a warm proof,
+     and one more proof under torch.profiler with device activity only
+     (launches and device ms per kernel, plain torch launches, idle share;
+     no trace file is written);
+  7. the kernels line (JSON), the card line, and last the result line.
 The port imports no JAX; this script imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -62,7 +75,9 @@ MODMULS_PER_PERM = 772        # Poseidon2-16: 8*16*4 (S-box) + 13*(4 + 16)
 # C entry point -> (launch counter, shape from the scalar arguments)
 ENTRY_SHAPES = {
     "ntt_pass": ("ntt_pass", lambda a: f"n={a[4]} W={a[5]} a={a[6]} L={a[7]}"
-                 f"{' dit' if a[8] else ''}{'' if a[3] == a[5] else f' ld_y={a[3]}'}"),
+                 f"{' dit' if a[8] else ''}{'' if a[1] == a[5] else f' ld_x={a[1]}'}"
+                 f"{'' if a[3] == a[5] else f' ld_y={a[3]}'}"
+                 f"{'' if a[10] is None else ' pre'}{'' if a[11] is None else ' post'}"),
     "p2_permute": ("poseidon2_permute", lambda a: f"({a[2]},16)"),
     "p2_hash_rows": ("poseidon2_hash_rows", lambda a: f"({a[1]},{a[2]})"),
     "p2_compress": ("poseidon2_compress", lambda a: f"{a[1]} digests, {a[2]} levels"),
@@ -320,19 +335,12 @@ def reset_counts():
             d[key] = 0
 
 
-def profile_proof(prove, trace_path: str) -> dict:
-    """One proof under torch.profiler (CPU and CUDA activity): device ms and
-    launches per kernel and per shape, the device's idle share over the
-    proof, and the compress launches of each Merkle tree. Shapes come from
-    the kernels' C calls, logged in order and matched one to one with the
-    trace's launches of those kernels (one stream, so the orders agree)."""
-    import collections
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
+@contextlib.contextmanager
+def log_calls():
+    """Log every kernel entry point's C call, (entry, args), in order, into
+    the list it yields: the loaded library's functions are wrapped while the
+    block runs."""
     from zkvm_prover_tpu_torch import _build
-    from zkvm_prover_tpu_torch.kernel_report import ENTRY_KERNELS, short_name
 
     lib = _build.lib()
     calls = []
@@ -347,15 +355,38 @@ def profile_proof(prove, trace_path: str) -> dict:
     for name, fn in originals.items():
         setattr(lib, name, logger(name, fn))
     try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(lib, name, fn)
+
+
+def call_key(entry: str, args) -> tuple:
+    """One C call's launch shape and code path (K1: with its row pitches and
+    its optional row tables)."""
+    return entry, ENTRY_SHAPES[entry][1](args)
+
+
+def profile_proof(prove, trace_path: str) -> dict:
+    """One proof under torch.profiler (CPU and CUDA activity): device ms and
+    launches per kernel and per shape, the device's idle share over the
+    proof, and the compress launches of each Merkle tree. Shapes come from
+    the kernels' C calls, logged in order and matched one to one with the
+    trace's launches of those kernels (one stream, so the orders agree)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from zkvm_prover_tpu_torch.kernel_report import ENTRY_KERNELS, short_name
+
+    with log_calls() as calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function("prove"):
                 prove()
                 torch.cuda.synchronize()
         prof.export_chrome_trace(trace_path)
-    finally:
-        for name, fn in originals.items():
-            setattr(lib, name, fn)
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     win = next(e for e in events if e["name"] == "prove" and e.get("cat") == "user_annotation")
@@ -588,6 +619,339 @@ def small_machine_cuda_equals_cpu(seed: int):
         raise AssertionError("the small machine proof does not verify")
 
 
+RV32_GUEST = (8, 256)          # bench_guest_program(n_outer, n_inner): 24,729 cycles
+RV32_SMALL_GUEST = (1, 4)      # 124 cycles, the same 18 AIRs (phase 5)
+RV32_DATA_BASE = 0x3000
+
+
+def rv32_air_traces(n_outer: int, n_inner: int) -> tuple:
+    """The benchmark guest executed by the native executor (built first)
+    and its traces: (AIR, trace, public values) triples and host timings."""
+    from zkvm_prover_tpu_torch.models import rv32_v2
+    from zkvm_prover_tpu_torch.vm import executor, guests
+
+    t0 = time.perf_counter()
+    executor.build_native()
+    build_s = time.perf_counter() - t0
+    prog = guests.bench_guest_program(n_outer, n_inner)
+    ex = executor.Rv32Executor()
+    ex.load_program(prog)
+    t0 = time.perf_counter()
+    state = ex.run(1 << 18)
+    exec_s = time.perf_counter() - t0
+    if state != executor.HALTED or ex.exit_code != 0:
+        raise AssertionError(f"guest did not halt cleanly: state {state}")
+    t0 = time.perf_counter()
+    air_traces = rv32_v2.generate_traces(prog, ex.records(), data_base=RV32_DATA_BASE)
+    tracegen_s = time.perf_counter() - t0
+    return air_traces, {"executor_build_s": build_s, "guest_cycles": ex.cycles,
+                        "execution_mhz": ex.cycles / 1e6 / max(exec_s, 1e-9),
+                        "tracegen_s": tracegen_s}
+
+
+def rv32_shapes(air_traces) -> dict:
+    """The kernel shapes of an rv32 machine proof, from its AIRs' heights,
+    widths, interaction counts and preprocessed widths, grouped as the
+    prover groups them (one commitment per LDE height and kind; FRI commits
+    every folded codeword below the largest height)."""
+    from zkvm_prover_tpu_torch.stark import machine
+
+    ldes, chunks, leaves, k3_rows, k3_cols = set(), set(), {}, set(), set()
+    for air, trace, _ in air_traces:
+        n, w = (int(v) for v in trace.shape)
+        log_n, m = n.bit_length() - 1, 2 * n
+        k, pre = machine._structure(air)
+        mats = [("trace", w, True)]
+        if k:
+            mats.append(("perm", 4 * k + 4, False))
+        if pre is not None:
+            mats.append(("pre", int(pre.shape[1]), True))
+        for kind, width, canonical in mats:
+            ldes.add((log_n, width, canonical))
+            leaves.setdefault((m, kind), 0)
+            leaves[(m, kind)] += width
+            k3_rows.add((m, width, 2))
+            k3_cols.add((n, width, 2))
+        chunks.add(log_n)
+        leaves[(m, "quotient")] = leaves.get((m, "quotient"), 0) + 8
+        k3_rows.add((m, 8, 1))
+        k3_cols.add((n, 4, 1))
+    log_max = max(lm for lm, _, _ in ldes) + 1
+    hash_rows = {(m, c) for (m, _), c in leaves.items()}
+    hash_rows |= {(1 << j, 4) for j in range(2, log_max)}      # FRI codewords
+    trees = {m for m, _ in hash_rows}
+    return {"lde": sorted(ldes), "chunks": sorted(chunks), "hash_rows": sorted(hash_rows),
+            "trees": sorted(trees), "k3_rows": sorted(k3_rows), "k3_cols": sorted(k3_cols)}
+
+
+def lde_plain(x, log_n: int, shift: int, canonical: bool, shift_in: int = 1):
+    """Plain torch on the card: the prover's LDE (bit-reversed coefficients
+    of x on shift_in * H, then its values on the two cosets of shift * G)."""
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import babybear as bb
+    from zkvm_prover_tpu_torch.ops import ntt, ntt_fused
+
+    n = 1 << log_n
+    factor = pow(n, bb.P - 2, bb.P) * (bb.R if canonical else 1) % bb.P
+    table = ntt.powers_bitrev(pow(shift_in, bb.P - 2, bb.P), log_n, x.device, factor)
+    c = bb.mul(ntt_fused.dif_plain(x.contiguous(), log_n, True), table[:, None])
+    w_m = bb.two_adic_generator_int(log_n + 1)
+    cosets = [ntt_fused.dit_plain(bb.mul(c, ntt.powers_bitrev(
+        shift * pow(w_m, r, bb.P) % bb.P, log_n, x.device)[:, None]), log_n, False)
+              for r in range(2)]
+    return c, torch.stack(cosets, dim=1).reshape(2 * n, x.shape[1])
+
+
+def check_rv32_shapes(shapes: dict, seed: int) -> list:
+    """Every kernel shape of the rv32 proof against its plain version on the
+    card, through the functions the prover calls: K1 as the prover's LDE
+    (trace, permutation and preprocessed matrices) and as its quotient
+    chunk path (strided input and output), K2 as row hashes and Merkle
+    trees, K3 as the DEEP sums (rows) and the OOD openings (transposed)."""
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import babybear as bb
+    from zkvm_prover_tpu_torch.ops import mont_matmul as mm
+    from zkvm_prover_tpu_torch.ops import ntt
+    from zkvm_prover_tpu_torch.ops import poseidon2 as p2
+    from zkvm_prover_tpu_torch.stark import machine
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    shift = bb.GENERATOR
+    rows = []
+
+    def record(name, shape, err):
+        rows.append({"name": name, "shape": shape, "max_abs_err": err})
+        if err != 0:
+            raise AssertionError(f"{name} {shape} disagrees with its plain version")
+
+    for log_n, w, canonical in shapes["lde"]:
+        x = random_field(gen, (1 << log_n, w), dev)
+        c_rev, lde = machine._lde(x, shift, 1, canonical=canonical)
+        c_p, lde_p = lde_plain(x, log_n, shift, canonical)
+        record("ntt_lde", f"({1 << log_n},{w}){' canonical' if canonical else ''}",
+               max(max_err(c_rev, c_p), max_err(lde, lde_p)))
+    for log_n in shapes["chunks"]:
+        n = 1 << log_n
+        q = random_field(gen, (2 * n, 4), dev)
+        out = torch.empty((2 * n, 8), dtype=bb.DTYPE, device=dev)
+        out_p = torch.empty_like(out)
+        err = 0
+        w_m = bb.two_adic_generator_int(log_n + 1)
+        for r in range(2):
+            s_r = shift * pow(w_m, r, bb.P) % bb.P
+            cr = ntt.interpolate_coset_rev(q[r::2], s_r)
+            ntt.eval_coset_from_rev(cr, 1, shift, out=out[:, 4 * r:4 * r + 4])
+            cr_p, out_p[:, 4 * r:4 * r + 4] = lde_plain(q[r::2], log_n, shift, False, s_r)
+            err = max(err, max_err(cr, cr_p))
+        record("ntt_quotient_chunks", f"({2 * n},4) -> ({2 * n},8)", max(err, max_err(out, out_p)))
+    for r_, c_ in shapes["hash_rows"]:
+        mat = random_field(gen, (r_, c_), dev)
+        record("poseidon2_hash_rows", f"({r_},{c_})",
+               max_err(p2.hash_rows(mat), p2.hash_rows_plain(mat)))
+    for m in shapes["trees"]:
+        leaves = random_field(gen, (m, 8), dev)
+        lm = m.bit_length() - 1
+        record("poseidon2_compress", f"2^{lm} leaves, {lm} levels",
+               max(max_err(a, b) for a, b in zip(p2.compress_levels(leaves, lm),
+                                                  p2.compress_levels_plain(leaves, lm))))
+    states = random_field(gen, (1 << 18, 16), dev)
+    record("poseidon2_permute", "(262144,16)", max_err(p2.permute(states), p2.permute_plain(states)))
+    for transpose, key in ((False, "k3_rows"), (True, "k3_cols")):
+        for r_, c_, k in shapes[key]:
+            a = random_field(gen, (r_, c_), dev)
+            b = random_field(gen, (r_ if transpose else c_, 4 * k), dev)
+            record("mont_matmul_cols" if transpose else "mont_matmul_rows",
+                   f"({r_},{c_}){'^T' if transpose else ''} k={k}",
+                   max_err(mm.mont_matmul(a, b, transpose), mm.mont_matmul_plain(a, b, transpose)))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_census(prove) -> dict:
+    """One proof under torch.profiler with device activity only (no chrome
+    trace is written): kernel launches and device ms by kind from the raw
+    device records, the union of their intervals as device busy time, and
+    the idle share over the proof's host wall-clock."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zkvm_prover_tpu_torch.kernel_report import ENTRY_KERNELS, short_name
+
+    ours = set(k for ks in ENTRY_KERNELS.values() for k in ks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prove()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kind = collections.defaultdict(lambda: [0, 0.0])
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        start, dur = e.start_ns(), e.duration_ns()
+        spans.append((start, start + dur))
+        if name.startswith(("Memcpy", "Memset")):
+            kind = name.split()[0].lower()
+        else:
+            kind = short_name(name)
+            if kind.split("<")[0] not in ours:
+                kind = "plain torch kernels"
+        per_kind[kind][0] += 1
+        per_kind[kind][1] += dur / 1e6
+    spans.sort()
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy_ms = busy / 1e6
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "per_kind": {k: {"launches": n, "ms": ms} for k, (n, ms) in
+                         sorted(per_kind.items(), key=lambda kv: -kv[1][1])}}
+
+
+def observed_values(proof) -> int:
+    """Field elements the out-of-domain openings put into the transcript."""
+    import numpy as np
+
+    return sum(int(np.asarray(getattr(ov, name)).size) for ov in proof.opened
+               for name in ("trace_zeta", "trace_zeta_next", "quotient", "perm_zeta",
+                            "perm_zeta_next", "pre_zeta", "pre_zeta_next")
+               if getattr(ov, name) is not None)
+
+
+def tampered_public_value(airs, proof):
+    """A copy of the proof with PublicValuesAir's first public value (a byte
+    of a revealed word) changed."""
+    bad = copy.deepcopy(proof)
+    i = next(j for j, a in enumerate(airs) if type(a).__name__ == "PublicValuesAir")
+    log_n, w, pvs = bad.meta[i]
+    bad.meta[i] = (log_n, w, [(pvs[0] + 1) % 256] + list(pvs[1:]))
+    return bad
+
+
+def rv32_cell(seed: int) -> dict:
+    """Phase 6: the rv32 machine path. The executor built, the benchmark
+    guest run and traced; every kernel shape of its proof checked against
+    its plain version; then the proof at default_config() with the launch
+    counts zeroed just before (cold), verify (True), a tampered public value
+    (False), a warm proof and a kernel census of one more proof."""
+    import torch
+
+    from zkvm_prover_tpu_torch.ops import ntt_fused
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import default_config
+
+    cfg = default_config()
+    air_traces, info = rv32_air_traces(*RV32_GUEST)
+    airs = [a for a, _, _ in air_traces]
+    insts = [machine.AirInstance(a, t, p) for a, t, p in air_traces]
+    cells = sum(int(t.size) for _, t, _ in air_traces)
+    print(f"[6] rv32 guest {RV32_GUEST}: {info['guest_cycles']} cycles, executor built in "
+          f"{info['executor_build_s']:.2f} s, traces in {info['tracegen_s']:.2f} s: "
+          f"{len(airs)} AIRs, {cells} cells", flush=True)
+    for a, t, p in air_traces:
+        print(f"      {type(a).__name__:20s} {str(t.shape):14s} pvs {len(p)}")
+    shapes = rv32_shapes(air_traces)
+    with log_calls() as checked:
+        rows = check_rv32_shapes(shapes, seed)
+    print(f"[6] {len(rows)} rv32 kernel shapes exact against their plain versions "
+          f"({len(set(call_key(e, a) for e, a in checked))} distinct C calls)", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with log_calls() as used:
+        t0 = time.perf_counter()
+        proof = machine.prove_machine(insts, cfg)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    unchecked = sorted(set(call_key(e, a) for e, a in used)
+                       - set(call_key(e, a) for e, a in checked))
+    if unchecked:
+        raise AssertionError(f"rv32 proof launched unchecked kernel shapes: {unchecked}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the rv32 path: {missing}")
+    phases = {k: v for k, v in proof.stat.items() if k.endswith("_ms")}
+    n_obs = observed_values(proof)
+    print(f"[6] proof_wall_s {prove_s:.3f}, proving_khz {info['guest_cycles'] / 1e3 / prove_s:.3f}, "
+          f"peak {peak} bytes ({peak / 2**30:.3f} GiB)", flush=True)
+    for key, val in phases.items():
+        print(f"      {key:24s} {val:10.1f} ms, running peak "
+              f"{proof.stat[key[:-3] + '_peak_bytes']} bytes")
+    print(f"[6] ood observed {n_obs} values ({-(-n_obs // 8)} duplexes)")
+    print(f"[6] launches: {counts}; K1 transforms {dict(ntt_fused.transforms)}", flush=True)
+    t0 = time.perf_counter()
+    ok = machine.verify_machine(airs, proof, cfg)
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tampered = machine.verify_machine(airs, tampered_public_value(airs, proof), cfg)
+    tampered_s = time.perf_counter() - t0
+    print(f"[6] verify_wall_s {verify_s:.3f}: {ok}; tampered public value: {tampered} "
+          f"in {tampered_s:.3f} s", flush=True)
+    if not ok or tampered:
+        raise AssertionError("rv32 verification phase failed")
+    del proof
+    bench_names = {"guest_cycles": info["guest_cycles"], "tracegen_s": info["tracegen_s"],
+                   "proof_wall_s": prove_s, "verify_wall_s": verify_s,
+                   "proving_khz": info["guest_cycles"] / 1e3 / prove_s}
+    print(f"[6] {json.dumps(bench_names)}", flush=True)
+
+    t0 = time.perf_counter()
+    warm = machine.prove_machine(insts, cfg)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_phases = {k: v for k, v in warm.stat.items() if k.endswith("_ms")}
+    print(f"[6] warm proof in {warm_s:.3f} s: "
+          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in warm_phases.items()), flush=True)
+    del warm
+    census = kernel_census(lambda: machine.prove_machine(insts, cfg))
+    print(f"[6] kernel census of one more proof: wall {census['wall_ms']:.1f} ms, device busy "
+          f"{census['device_busy_ms']:.1f} ms, idle share {census['idle_share']:.4f}")
+    for name, row in census["per_kind"].items():
+        print(f"      {name:30s} launches {row['launches']:8d}  device ms {row['ms']:9.3f}")
+    torch.cuda.empty_cache()
+    return {**info, **bench_names,
+            "airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces],
+            "trace_cells": cells, "shape_checks": rows, "peak_bytes": peak, "phases_ms": phases, "ood_observed_values": n_obs,
+            "launches": counts, "tampered_public_value": tampered,
+            "tampered_verify_s": tampered_s, "warm_prove_s": warm_s,
+            "warm_phases_ms": warm_phases, "census": census}
+
+
+def small_rv32_cuda_equals_cpu():
+    """The small keccak guest's 18-AIR proof at fast_test_config() on cuda
+    and on cpu: equal in every field but `stat`."""
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+
+    air_traces, _ = rv32_air_traces(*RV32_SMALL_GUEST)
+    insts = [machine.AirInstance(a, t, p) for a, t, p in air_traces]
+    t0 = time.perf_counter()
+    p_cuda = machine.prove_machine(insts, fast_test_config(), device="cuda")
+    t1 = time.perf_counter()
+    p_cpu = machine.prove_machine(insts, fast_test_config(), device="cpu")
+    t2 = time.perf_counter()
+    proofs_equal(p_cuda, p_cpu)
+    if not machine.verify_machine([a for a, _, _ in air_traces], p_cuda, fast_test_config()):
+        raise AssertionError("the small rv32 proof does not verify")
+    return {"cuda_s": t1 - t0, "cpu_s": t2 - t1}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=18,
@@ -750,9 +1114,16 @@ def main() -> int:
     small_machine_cuda_equals_cpu(args.seed + 2)
     print("[5] small machine proofs (4 AIRs, 3 heights, a logUp bus) on cuda and cpu "
           "are identical", flush=True)
+    report["small_rv32"] = small_rv32_cuda_equals_cpu()
+    print(f"[5] small rv32 proofs (bench_guest_program{RV32_SMALL_GUEST}, 18 AIRs) on cuda "
+          f"({report['small_rv32']['cuda_s']:.1f} s) and cpu ({report['small_rv32']['cpu_s']:.1f} s) "
+          "are identical", flush=True)
 
-    # 6. the kernels line: per kernel, its largest main-path shape; launches
-    # summed over the two paths (single-AIR proof and machine cell)
+    # 6. the rv32 machine path
+    report["rv32"] = rv32_cell(args.seed + 3)
+
+    # 7. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the three paths (single-AIR proof, machine cell, rv32)
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -763,7 +1134,8 @@ def main() -> int:
         entry = {key: row[key] for key in (
             "name", "route", "source", "replaces")}
         by_path = {"single_air": counts[row["counter"]],
-                   "machine": report["machine"]["launches"][row["counter"]]}
+                   "machine": report["machine"]["launches"][row["counter"]],
+                   "rv32": report["rv32"]["launches"][row["counter"]]}
         entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -361,3 +361,115 @@ def test_small_machine_proof_cuda_equals_cpu(cuda):
     b = machine.prove_machine(insts, fast_test_config(), device="cpu")
     _proofs_equal(a, b)
     assert machine.verify_machine(airs, a, fast_test_config())
+
+
+# The rv32 machine proof's shapes (chip_smoke.py phase 6: the benchmark guest
+# bench_guest_program(8, 256), 18 AIRs from 2^2 to 2^16 rows): every matrix
+# LDE (log_n, width, canonical input), the quotient chunk path at each height,
+# the leaves of each height side by side and the FRI codewords, every tree
+# height, and K3 at each (rows, width, k). chip_smoke derives the same lists
+# from the AIRs (`rv32_shapes`).
+RV32_LDE = [(2, 1, True), (2, 4, True), (2, 12, False), (2, 36, False), (3, 1116, True),
+            (3, 1384, False), (5, 6, True), (5, 7, True), (5, 12, False), (5, 55, True),
+            (5, 92, False), (5, 160, False), (7, 1, True), (7, 8, False), (7, 10, True),
+            (8, 2, True), (8, 8, False), (8, 67, True), (8, 2609, True), (11, 70, True),
+            (11, 100, True), (11, 109, True), (11, 168, False), (11, 240, False),
+            (11, 248, False), (12, 58, True), (12, 72, False), (13, 72, True),
+            (13, 140, False), (14, 69, True), (14, 120, False), (16, 1, True), (16, 3, True),
+            (16, 8, False)]
+RV32_CHUNKS = [2, 3, 5, 7, 8, 11, 12, 13, 14, 16]
+RV32_HASH_ROWS = [(4, 4), (8, 4), (8, 5), (8, 16), (8, 48), (16, 4), (16, 8), (16, 1116),
+                  (16, 1384), (32, 4), (64, 4), (64, 32), (64, 123), (64, 276), (128, 4),
+                  (256, 1), (256, 4), (256, 8), (256, 10), (512, 4), (512, 16), (512, 67),
+                  (512, 2611), (1024, 4), (2048, 4), (4096, 4), (4096, 24), (4096, 279),
+                  (4096, 656), (8192, 4), (8192, 8), (8192, 58), (8192, 72), (16384, 4),
+                  (16384, 8), (16384, 72), (16384, 140), (32768, 4), (32768, 8), (32768, 69),
+                  (32768, 120), (65536, 4), (131072, 2), (131072, 4), (131072, 16)]
+RV32_TREES = list(range(2, 18))  # log2 of every tree's leaf count
+RV32_K3_ROWS = [(8, 1, 2), (8, 4, 2), (8, 8, 1), (8, 12, 2), (8, 36, 2), (16, 8, 1),
+                (16, 1116, 2), (16, 1384, 2), (64, 6, 2), (64, 7, 2), (64, 8, 1), (64, 12, 2),
+                (64, 55, 2), (64, 92, 2), (64, 160, 2), (256, 1, 2), (256, 8, 1), (256, 8, 2),
+                (256, 10, 2), (512, 2, 2), (512, 8, 1), (512, 8, 2), (512, 67, 2),
+                (512, 2609, 2), (4096, 8, 1), (4096, 70, 2), (4096, 100, 2), (4096, 109, 2),
+                (4096, 168, 2), (4096, 240, 2), (4096, 248, 2), (8192, 8, 1), (8192, 58, 2),
+                (8192, 72, 2), (16384, 8, 1), (16384, 72, 2), (16384, 140, 2), (32768, 8, 1),
+                (32768, 69, 2), (32768, 120, 2), (131072, 1, 2), (131072, 3, 2),
+                (131072, 8, 1), (131072, 8, 2)]
+RV32_K3_COLS = [(4, 1, 2), (4, 4, 1), (4, 4, 2), (4, 12, 2), (4, 36, 2), (8, 4, 1),
+                (8, 1116, 2), (8, 1384, 2), (32, 4, 1), (32, 6, 2), (32, 7, 2), (32, 12, 2),
+                (32, 55, 2), (32, 92, 2), (32, 160, 2), (128, 1, 2), (128, 4, 1), (128, 8, 2),
+                (128, 10, 2), (256, 2, 2), (256, 4, 1), (256, 8, 2), (256, 67, 2),
+                (256, 2609, 2), (2048, 4, 1), (2048, 70, 2), (2048, 100, 2), (2048, 109, 2),
+                (2048, 168, 2), (2048, 240, 2), (2048, 248, 2), (4096, 4, 1), (4096, 58, 2),
+                (4096, 72, 2), (8192, 4, 1), (8192, 72, 2), (8192, 140, 2), (16384, 4, 1),
+                (16384, 69, 2), (16384, 120, 2), (65536, 1, 2), (65536, 3, 2), (65536, 4, 1),
+                (65536, 8, 2)]
+
+
+@pytest.mark.parametrize("log_n,w,canonical", RV32_LDE)
+def test_rv32_lde_shapes(cuda, log_n, w, canonical):
+    """The prover's LDE of one matrix: bit-reversed coefficients and the
+    two cosets, against the same call on the CPU (the plain versions)."""
+    from zkvm_prover_tpu_torch.stark import machine
+
+    x = _rand(log_n + 3 * w, (1 << log_n, w), cuda)
+    shift = pow(31, 1 << (17 - log_n), bb.P)
+    for a, b in zip(machine._lde(x, shift, 1, canonical=canonical),
+                    machine._lde(x.cpu(), shift, 1, canonical=canonical)):
+        _same(a, b)
+
+
+@pytest.mark.parametrize("log_n", RV32_CHUNKS)
+def test_rv32_quotient_chunk_shapes(cuda, log_n):
+    n = 1 << log_n
+    q = _rand(log_n, (2 * n, 4), cuda)
+    w_m = bb.two_adic_generator_int(log_n + 1)
+    outs = []
+    for dev in (cuda, "cpu"):
+        out = torch.zeros((2 * n, 8), dtype=bb.DTYPE, device=dev)
+        for r in range(2):
+            c = ntt.interpolate_coset_rev(q.to(dev)[r::2], 31 * pow(w_m, r, bb.P) % bb.P)
+            ntt.eval_coset_from_rev(c, 1, 31, out=out[:, 4 * r:4 * r + 4])
+        outs.append(out)
+    _same(*outs)
+
+
+@pytest.mark.parametrize("rows,cols", RV32_HASH_ROWS)
+def test_rv32_hash_rows_shapes(cuda, rows, cols):
+    m = _rand(rows + cols, (rows, cols), cuda)
+    _same(p2.hash_rows(m), p2.hash_rows_plain(m))
+
+
+@pytest.mark.parametrize("log_h", RV32_TREES)
+def test_rv32_tree_shapes(cuda, log_h):
+    leaves = _rand(log_h, (1 << log_h, 8), cuda)
+    for a, b in zip(p2.compress_levels(leaves, log_h),
+                    p2.compress_levels_plain(leaves, log_h)):
+        _same(a, b)
+
+
+@pytest.mark.parametrize("transpose_a,r,c,k", [(False, *s) for s in RV32_K3_ROWS]
+                         + [(True, *s) for s in RV32_K3_COLS])
+def test_rv32_mont_matmul_shapes(cuda, transpose_a, r, c, k):
+    a = _rand(r + c, (r, c), cuda)
+    b = _rand(c + k, (r if transpose_a else c, 4 * k), cuda)
+    _same(mm.mont_matmul(a, b, transpose_a), mm.mont_matmul_plain(a, b, transpose_a))
+
+
+def test_small_rv32_proof_cuda_equals_cpu(cuda):
+    """bench_guest_program(1, 4): 124 cycles, one keccak call, 18 AIRs."""
+    from zkvm_prover_tpu_torch.models import rv32_v2
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+    from zkvm_prover_tpu_torch.vm import executor, guests
+
+    prog = guests.bench_guest_program(1, 4)
+    ex = executor.Rv32Executor()
+    ex.load_program(prog)
+    assert ex.run(1 << 18) == executor.HALTED
+    air_traces = rv32_v2.generate_traces(prog, ex.records(), data_base=0x3000)
+    insts = [machine.AirInstance(a, t, p) for a, t, p in air_traces]
+    a = machine.prove_machine(insts, fast_test_config(), device=cuda)
+    b = machine.prove_machine(insts, fast_test_config(), device="cpu")
+    _proofs_equal(a, b)
+    assert machine.verify_machine([x for x, _, _ in air_traces], a, fast_test_config())

@@ -1,4 +1,4 @@
-"""zkvm_prover_tpu_torch — the single-AIR STARK prover on PyTorch and CUDA.
+"""zkvm_prover_tpu_torch — the STARK prover on PyTorch and CUDA.
 
 A port of `zkvm_prover_tpu` (the JAX reference, which stays beside it) to
 PyTorch tensors on an NVIDIA H100. Field elements are BabyBear residues in
@@ -10,8 +10,11 @@ Layout (the reference's module names, PyTorch inside):
   ops/       NTT / coset LDE, Poseidon2, exact base-by-ext products; each
              hand-written CUDA kernel sits beside its plain torch version
   csrc/      the CUDA C++ sources (sm_90a), built by `_build.py`
-  stark/     config, Merkle commitments, challenger, FRI, prover, verifier
-  models/    AIR interface and the Fibonacci / Poseidon2 AIRs
+  stark/     config, Merkle commitments, challenger, FRI, prover, verifier,
+             the multi-AIR machine prover and verifier
+  models/    AIR interface and builders, the Fibonacci / Poseidon2 / lookup
+             AIRs, the rv32 machine's RV32IM and keccak chips, the vk stream
+  vm/        RV32IM assembler, native executor binding, benchmark guest
   utils/     python-int extension arithmetic for the host verifier
   convert.py state carried across from the reference (constants, proofs)
 

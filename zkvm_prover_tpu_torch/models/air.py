@@ -159,6 +159,11 @@ class _Filtered:
         self.assert_zero(self.b.mul(a, self.b.sub(a, self.b.constant(1))))
 
 
+def base_col(x):
+    """A base value against (n, 4): (n, 1) for a tensor, a constant as is."""
+    return x[:, None] if isinstance(x, torch.Tensor) else x
+
+
 class LdeBuilder(AirBuilder):
     """Evaluation over the LDE domain (the prover's quotient pass).
 
@@ -200,13 +205,21 @@ class LdeBuilder(AirBuilder):
     def public_value(self, i):
         return self._pvs[i]
 
+    # Constants and public values are Montgomery python ints; an operation
+    # on two of them stays a python int.
     def add(self, a, b):
+        if isinstance(a, int) and isinstance(b, int):
+            return (a + b) % bb.P
         return bb.add(a, b)
 
     def sub(self, a, b):
+        if isinstance(a, int) and isinstance(b, int):
+            return (a - b) % bb.P
         return bb.sub(a, b)
 
     def mul(self, a, b):
+        if isinstance(a, int) and isinstance(b, int):
+            return a * b * bb.R_INV % bb.P
         return bb.mul(a, b)
 
     def constant(self, v):
@@ -225,7 +238,7 @@ class LdeBuilder(AirBuilder):
         if self._alpha is None:
             self._constraints.append(expr)
         else:
-            self._fold(lambda a: bb.mul(expr[:, None], a))
+            self._fold(lambda a: bb.mul(base_col(expr), a))
 
     def assert_zero_ext(self, expr):
         """An extension-valued (m, 4) constraint (the logUp constraints),

@@ -1,0 +1,59 @@
+"""The keccak-f[1600] permutation on python ints (host side): the
+reference's `zkvm_prover_tpu/ops/keccak.py` permutation and tables, which
+the keccak chips' trace generation and AIR constants use.
+"""
+
+from __future__ import annotations
+
+_MASK = (1 << 64) - 1
+
+_ROUND_CONSTANTS = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
+    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
+    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
+    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
+    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
+    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
+    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+
+# rotation offsets r[x][y]
+_ROTATIONS = [
+    [0, 36, 3, 41, 18],
+    [1, 44, 10, 45, 2],
+    [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56],
+    [27, 20, 39, 8, 14],
+]
+
+
+def _rotl(v: int, n: int) -> int:
+    n %= 64
+    return ((v << n) | (v >> (64 - n))) & _MASK
+
+
+def keccak_f1600(state):
+    """state: list of 25 ints (lanes), indexed [x + 5*y]."""
+    a = state
+    for rc in _ROUND_CONSTANTS:
+        # theta
+        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20] for x in range(5)]
+        d = [c[(x - 1) % 5] ^ _rotl(c[(x + 1) % 5], 1) for x in range(5)]
+        a = [(a[i] ^ d[i % 5]) for i in range(25)]
+        # rho + pi
+        b = [0] * 25
+        for x in range(5):
+            for y in range(5):
+                b[y + 5 * ((2 * x + 3 * y) % 5)] = _rotl(
+                    a[x + 5 * y], _ROTATIONS[x][y]
+                )
+        # chi
+        a = [
+            b[x + 5 * y] ^ ((~b[(x + 1) % 5 + 5 * y]) & b[(x + 2) % 5 + 5 * y])
+            for y in range(5)
+            for x in range(5)
+        ]
+        # iota
+        a[0] ^= rc
+    return a

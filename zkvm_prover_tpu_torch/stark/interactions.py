@@ -33,12 +33,8 @@ import torch
 
 from ..fields import babybear as bb
 from ..fields import ext4
-from ..models.air import Interaction
+from ..models.air import Interaction, base_col
 from ..utils import ext_np
-
-def _base_col(x):
-    """A base value as a column against (n, 4): (n, 1) for a tensor."""
-    return x[:, None] if isinstance(x, torch.Tensor) else x
 
 
 def fingerprint(inter: Interaction, beta, point_mode: bool = False):
@@ -55,7 +51,7 @@ def fingerprint(inter: Interaction, beta, point_mode: bool = False):
     acc = ext4.from_ints([inter.bus, 0, 0, 0], beta.device)
     bpow = beta
     for f in inter.fields:
-        acc = ext4.add(acc, bb.mul(_base_col(f), bpow))
+        acc = ext4.add(acc, bb.mul(base_col(f), bpow))
         bpow = ext4.mul(bpow, beta)
     return acc
 
@@ -74,7 +70,7 @@ def signed_mult(inter: Interaction, point_mode: bool = False):
 
 def _sub_base(e, s):
     """Extension e (.., 4) minus base s (coefficient 0 only)."""
-    head = bb.sub(e[..., :1], _base_col(s))
+    head = bb.sub(e[..., :1], base_col(s))
     return torch.cat([head, e[..., 1:].expand(head.shape[:-1] + (3,))], dim=-1)
 
 
@@ -90,7 +86,7 @@ def build_perm_trace(interactions: Sequence[Interaction], z, beta):
         fp = fingerprint(inter, beta)
         inv_d = ext4.inv(ext4.sub(z, fp))
         # the multiplicity is a base value: a scale, not an extension product
-        cols.append(bb.mul(inv_d, _base_col(signed_mult(inter))))
+        cols.append(bb.mul(inv_d, base_col(signed_mult(inter))))
     cols = torch.broadcast_tensors(*cols)
     total = cols[0]
     for c in cols[1:]:

@@ -540,13 +540,6 @@ def verify_machine(
     for lm in heights:
         ch.observe_slice(proof.quotient_roots[lm])
     zeta = ch.sample_ext()
-    for i, ov in enumerate(proof.opened):
-        _observe_opened(ch, ov.trace_zeta, ov.trace_zeta_next, ov.quotient)
-        if inter_counts[i]:
-            _observe_opened(ch, ov.perm_zeta, ov.perm_zeta_next)
-        if pre_traces[i] is not None:
-            _observe_opened(ch, ov.pre_zeta, ov.pre_zeta_next)
-    gamma = ch.sample_ext()
 
     # ---- global logUp balance --------------------------------------------
     total = [0, 0, 0, 0]
@@ -556,7 +549,7 @@ def verify_machine(
     if any(total):
         return False
 
-    zeta_c, gamma_c, alpha_c = (ext_np.from_monty(v) for v in (zeta, gamma, alpha))
+    zeta_c, alpha_c = ext_np.from_monty(zeta), ext_np.from_monty(alpha)
     beta_c, z_c = ext_np.from_monty(beta), ext_np.from_monty(z)
     canon = []
     for ov in proof.opened:
@@ -587,6 +580,17 @@ def verify_machine(
         q_zeta = quotient_at_point(cv["quotient"], shifts[i], log_n, log_ms[i], zeta_c)
         if not ext_np.eq(q_expected, q_zeta):
             return False
+
+    # ---- the openings enter the transcript -------------------------------
+    # (after the checks above, which need no later challenge: a proof they
+    # reject is rejected before the longest part of the replay)
+    for i, ov in enumerate(proof.opened):
+        _observe_opened(ch, ov.trace_zeta, ov.trace_zeta_next, ov.quotient)
+        if inter_counts[i]:
+            _observe_opened(ch, ov.perm_zeta, ov.perm_zeta_next)
+        if pre_traces[i] is not None:
+            _observe_opened(ch, ov.pre_zeta, ov.pre_zeta_next)
+    gamma = ch.sample_ext()
 
     # ---- Merkle openings, one batched walk per tree ----------------------
     for lm in heights:
