@@ -34,9 +34,10 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      chunk)), verify (True) and a tampered claimed sum (False); then a warm
      and a profiled machine proof;
   5. cross-device identity: a 2^10-row proof at fast_test_config(), a
-     small machine proof (four AIRs, three heights, a logUp bus) and the
-     small rv32 proof (bench_guest_program(1, 4): 124 cycles, 18 AIRs) on
-     cuda and on cpu, each equal in every field but `stat`;
+     small machine proof (four AIRs, three heights, a logUp bus), the
+     small rv32 proof (bench_guest_program(1, 4): 124 cycles, 18 AIRs) and
+     a fibonacci envelope from `Prover.gen_proof_stark` on cuda and on
+     cpu, each equal in every field but `stat`;
   6. the rv32 machine path: the native executor built (g++), the benchmark
      guest bench_guest_program(8, 256) run (24,729 cycles) and traced (18
      AIRs); every kernel shape of its proof checked against its plain
@@ -48,7 +49,18 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      and one more proof under torch.profiler with device activity only
      (launches and device ms per kernel, plain torch launches, idle share;
      no trace file is written);
-  7. the kernels line (JSON), the card line, and last the result line.
+  7. the host entry point: ChunkTaskGenerator(stark=default_config()) with
+     its proof cache in a fresh build/chip_smoke_chunk/; the chunk
+     machine's kernel shapes (18 AIRs, from its executed traces) checked
+     against their plain versions; `Prover.gen_proof_stark` on chunk 0
+     (execute the hash-reveal guest, prove on the card, self-verify) with
+     the launch counts zeroed just before and read just after, every C
+     call at a checked shape: execute, prove and self-verify ms, launches
+     per kernel (each nonzero), peak memory, the envelope's size and the
+     values `ood` observed; `UniversalVerifier` (True) and a flipped
+     `user_pvs_proof` byte (False); a second call answered from the cache
+     with no launch and an equal envelope;
+  8. the kernels line (JSON), the card line, and last the result line.
 The port imports no JAX; this script imports nothing of the JAX package.
 """
 
@@ -952,6 +964,115 @@ def small_rv32_cuda_equals_cpu():
     return {"cuda_s": t1 - t0, "cpu_s": t2 - t1}
 
 
+def fibonacci_envelope_cuda_equals_cpu():
+    """The fibonacci app's envelope (log_n 4, fast_test_config()) from
+    `Prover.gen_proof_stark` on cuda and on cpu: equal but for `stat`."""
+    from zkvm_prover_tpu_torch.host import Prover, ProverConfig, ProvingTask
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+
+    task = ProvingTask(serialized_witness=[json.dumps({"log_n": 4, "x0": 1, "x1": 1}).encode()])
+    cuda, cpu = (Prover(ProverConfig("fibonacci", stark=fast_test_config(), device=d))
+                 .gen_proof_stark(task) for d in ("cuda", "cpu"))
+    for name in ("proof", "user_pvs_proof", "baseline", "deferral_merkle_proofs"):
+        if getattr(cuda, name) != getattr(cpu, name):
+            raise AssertionError(f"fibonacci envelopes differ in {name}")
+
+
+def chunk_cell(seed: int) -> dict:
+    """Phase 7: the host entry point. Chunk 0 of ChunkTaskGenerator at
+    default_config(): its kernel shapes checked first, then one
+    `Prover.gen_proof_stark` on a fresh cache (execute, prove on the card,
+    self-verify) with the launch counts zeroed just before, an independent
+    `UniversalVerifier`, a tampered PI hash, and a second call that the
+    cache answers."""
+    import shutil
+
+    import torch
+
+    from zkvm_prover_tpu_torch.host import StarkProof, UniversalVerifier, serialization
+    from zkvm_prover_tpu_torch.integration import ChunkTaskGenerator
+    from zkvm_prover_tpu_torch.stark.config import default_config
+
+    cfg = default_config()
+    run_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_chunk")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    os.environ["OUTPUT_DIR"] = run_dir
+    gen = ChunkTaskGenerator(stark=cfg)
+    task = gen.task(0)
+    prover = gen.prover
+    instances, _ = prover.app.execute(task)
+    air_traces = [(i.air, i.trace, i.public_values) for i in instances]
+    cells = sum(int(t.size) for _, t, _ in air_traces)
+    print(f"[7] chunk 0 ({gen.blocks_per_chunk} blocks): {len(air_traces)} AIRs, {cells} cells",
+          flush=True)
+    for a, t, p in air_traces:
+        print(f"      {type(a).__name__:20s} {str(t.shape):14s} pvs {len(p)}")
+    with log_calls() as checked:
+        rows = check_rv32_shapes(rv32_shapes(air_traces), seed)
+    print(f"[7] {len(rows)} chunk kernel shapes exact against their plain versions "
+          f"({len(set(call_key(e, a) for e, a in checked))} distinct C calls)", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with log_calls() as used:
+        t0 = time.perf_counter()
+        env = prover.gen_proof_stark(task)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    unchecked = sorted(set(call_key(e, a) for e, a in used)
+                       - set(call_key(e, a) for e, a in checked))
+    if unchecked:
+        raise AssertionError(f"chunk proof launched unchecked kernel shapes: {unchecked}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the chunk path: {missing}")
+    exec_ms, prove_ms = env.stat.execution_time_mills, env.stat.proving_time_mills
+    self_verify_ms = wall_s * 1e3 - exec_ms - prove_ms
+    env_bytes = len(json.dumps(env.to_dict()))
+    n_obs = observed_values(serialization.decode_machine_proof(env.proof))
+    print(f"[7] gen_proof_stark {wall_s:.3f} s: execute {exec_ms} ms, prove {prove_ms} ms, "
+          f"self-verify {self_verify_ms:.0f} ms; peak {peak} bytes; envelope {env_bytes} "
+          f"bytes of JSON ({len(env.proof)} proof bytes); ood observed {n_obs} values",
+          flush=True)
+    print(f"[7] launches: {counts}", flush=True)
+
+    verifier = UniversalVerifier("chunk", cfg)
+    t0 = time.perf_counter()
+    ok = verifier.verify_stark_proof(StarkProof.from_dict(json.loads(json.dumps(env.to_dict()))))
+    verify_s = time.perf_counter() - t0
+    bad = StarkProof.from_dict(env.to_dict())
+    bad.user_pvs_proof = bytes([bad.user_pvs_proof[0] ^ 1]) + bad.user_pvs_proof[1:]
+    t0 = time.perf_counter()
+    tampered = verifier.verify_stark_proof(bad)
+    tampered_s = time.perf_counter() - t0
+    print(f"[7] UniversalVerifier: {ok} in {verify_s:.3f} s; flipped user_pvs_proof byte: "
+          f"{tampered} in {tampered_s:.3f} s", flush=True)
+    if not ok or tampered:
+        raise AssertionError("chunk verification phase failed")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    cached = prover.gen_proof_stark(task)
+    cached_s = time.perf_counter() - t0
+    cached_launches = sum(launch_counts().values())
+    print(f"[7] second call from the cache in {cached_s:.3f} s, {cached_launches} launches, "
+          f"equal envelope: {cached.to_dict() == env.to_dict()}", flush=True)
+    if cached_launches or cached.to_dict() != env.to_dict():
+        raise AssertionError("the second call was not answered from the cache")
+    torch.cuda.empty_cache()
+    return {"airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces],
+            "trace_cells": cells, "shape_checks": rows, "gen_proof_stark_s": wall_s,
+            "execute_ms": exec_ms, "prove_ms": prove_ms, "self_verify_ms": self_verify_ms,
+            "verify_s": verify_s, "peak_bytes": peak, "envelope_json_bytes": env_bytes,
+            "proof_bytes": len(env.proof), "ood_observed_values": n_obs, "launches": counts,
+            "tampered_pi_hash": tampered, "tampered_verify_s": tampered_s,
+            "cached_s": cached_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=18,
@@ -1118,12 +1239,18 @@ def main() -> int:
     print(f"[5] small rv32 proofs (bench_guest_program{RV32_SMALL_GUEST}, 18 AIRs) on cuda "
           f"({report['small_rv32']['cuda_s']:.1f} s) and cpu ({report['small_rv32']['cpu_s']:.1f} s) "
           "are identical", flush=True)
+    fibonacci_envelope_cuda_equals_cpu()
+    print("[5] fibonacci envelopes from Prover.gen_proof_stark on cuda and cpu are identical",
+          flush=True)
 
     # 6. the rv32 machine path
     report["rv32"] = rv32_cell(args.seed + 3)
 
-    # 7. the kernels line: per kernel, its largest main-path shape; launches
-    # summed over the three paths (single-AIR proof, machine cell, rv32)
+    # 7. the host entry point
+    report["chunk"] = chunk_cell(args.seed + 4)
+
+    # 8. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the four paths (single-AIR proof, machine cell, rv32, chunk)
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -1135,7 +1262,8 @@ def main() -> int:
             "name", "route", "source", "replaces")}
         by_path = {"single_air": counts[row["counter"]],
                    "machine": report["machine"]["launches"][row["counter"]],
-                   "rv32": report["rv32"]["launches"][row["counter"]]}
+                   "rv32": report["rv32"]["launches"][row["counter"]],
+                   "chunk": report["chunk"]["launches"][row["counter"]]}
         entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

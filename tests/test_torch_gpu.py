@@ -473,3 +473,40 @@ def test_small_rv32_proof_cuda_equals_cpu(cuda):
     b = machine.prove_machine(insts, fast_test_config(), device="cpu")
     _proofs_equal(a, b)
     assert machine.verify_machine([x for x, _, _ in air_traces], a, fast_test_config())
+
+
+# ---------------------------------------------------------------------------
+# the host entry point (zkvm_prover_tpu_torch/host)
+# ---------------------------------------------------------------------------
+
+HOST_WITNESS = {"fibonacci": {"log_n": 4, "x0": 1, "x1": 1},
+                "fib-double": {"log_n_fib": 4, "log_n_dbl": 3}}
+
+
+def _host_envelope(app_name, device):
+    import json
+
+    from zkvm_prover_tpu_torch.host import Prover, ProverConfig, ProvingTask
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+
+    prover = Prover(ProverConfig(app_name, stark=fast_test_config(), device=device))
+    task = ProvingTask(serialized_witness=[json.dumps(HOST_WITNESS[app_name]).encode()])
+    return prover.gen_proof_stark(task)
+
+
+@pytest.mark.parametrize("app_name", list(HOST_WITNESS))
+def test_host_envelope_cuda_equals_cpu(cuda, app_name):
+    a, b = _host_envelope(app_name, "cuda"), _host_envelope(app_name, "cpu")
+    for name in ("proof", "user_pvs_proof", "baseline", "deferral_merkle_proofs"):
+        assert getattr(a, name) == getattr(b, name), name
+    assert a.stat.total_cycles == b.stat.total_cycles
+
+
+def test_host_prover_defaults_to_the_card(cuda):
+    """ProverConfig(device=None) proves on the card: every kernel launches."""
+    counters = (ntt_fused.launches, p2.launches, mm.launches)
+    before = [dict(c) for c in counters]
+    _host_envelope("fibonacci", None)
+    for c, b in zip(counters, before):
+        for key in c:
+            assert c[key] > b[key], key

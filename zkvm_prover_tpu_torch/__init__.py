@@ -14,7 +14,13 @@ Layout (the reference's module names, PyTorch inside):
              the multi-AIR machine prover and verifier
   models/    AIR interface and builders, the Fibonacci / Poseidon2 / lookup
              AIRs, the rv32 machine's RV32IM and keccak chips, the vk stream
-  vm/        RV32IM assembler, native executor binding, benchmark guest
+  vm/        RV32IM assembler, native executor binding, benchmark and
+             hash-reveal guests
+  host/      the entry point: proving tasks, apps, Prover (disk cache,
+             self-verify), UniversalVerifier, the proof envelope and codec
+  types/, circuits/, integration/
+             Scroll public-input types, the chunk circuit, the chunk task
+             generator
   utils/     python-int extension arithmetic for the host verifier
   convert.py state carried across from the reference (constants, proofs)
 

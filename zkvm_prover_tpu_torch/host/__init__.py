@@ -1,0 +1,19 @@
+"""The host API: proving tasks in, verified proof envelopes out (the
+reference's `zkvm_prover_tpu/host/`). `scroll_apps` registers the chunk app
+when imported."""
+
+from .proof_types import EvmProof, ProofEnum, StarkProof, StarkProofStat
+from .task import ProvingTask
+from .prover import Prover, ProverConfig
+from .verifier import UniversalVerifier
+
+__all__ = [
+    "EvmProof",
+    "ProofEnum",
+    "StarkProof",
+    "StarkProofStat",
+    "ProvingTask",
+    "Prover",
+    "ProverConfig",
+    "UniversalVerifier",
+]

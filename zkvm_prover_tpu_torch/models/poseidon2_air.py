@@ -209,3 +209,13 @@ class Poseidon2Air(Air):
         """(n, 16) canonical final states."""
         out_base = _EXT_COLS[-1][1]
         return trace[:, out_base: out_base + WIDTH]
+
+
+def permute_canonical(inputs: np.ndarray) -> np.ndarray:
+    """Host permutation on canonical words: (n, 16) -> (n, 16)."""
+    return bb.from_monty_np(p2.permute_np(bb.to_monty_np(np.asarray(inputs, np.uint32))))
+
+
+def compress_canonical(left: np.ndarray, right: np.ndarray) -> np.ndarray:
+    """Canonical 2-to-1 digest compression, (n, 8) + (n, 8) -> (n, 8)."""
+    return permute_canonical(np.concatenate([left, right], axis=-1))[:, :DIGEST]

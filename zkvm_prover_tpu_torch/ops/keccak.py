@@ -1,6 +1,7 @@
-"""The keccak-f[1600] permutation on python ints (host side): the
-reference's `zkvm_prover_tpu/ops/keccak.py` permutation and tables, which
-the keccak chips' trace generation and AIR constants use.
+"""Keccak on python ints (host side): the reference's
+`zkvm_prover_tpu/ops/keccak.py` permutation, tables and byte-level
+`keccak256`. The keccak chips' trace generation and AIR constants use the
+permutation; the host apps and the chunk types hash with `keccak256`.
 """
 
 from __future__ import annotations
@@ -57,3 +58,20 @@ def keccak_f1600(state):
         # iota
         a[0] ^= rc
     return a
+
+
+def keccak256(data: bytes) -> bytes:
+    """Ethereum keccak256 (rate 1088, capacity 512, pad 0x01...0x80)."""
+    rate = 136  # bytes
+    state = [0] * 25
+    padded = bytearray(data)
+    padded.append(0x01)
+    while len(padded) % rate != 0:
+        padded.append(0x00)
+    padded[-1] |= 0x80
+    for off in range(0, len(padded), rate):
+        block = padded[off:off + rate]
+        for i in range(rate // 8):
+            state[i] ^= int.from_bytes(block[8 * i:8 * i + 8], "little")
+        state = keccak_f1600(state)
+    return b"".join(state[i].to_bytes(8, "little") for i in range(4))
