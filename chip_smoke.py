@@ -37,7 +37,10 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      small machine proof (four AIRs, three heights, a logUp bus), the
      small rv32 proof (bench_guest_program(1, 4): 124 cycles, 18 AIRs) and
      a fibonacci envelope from `Prover.gen_proof_stark` on cuda and on
-     cpu, each equal in every field but `stat`;
+     cpu, each equal in every field but `stat`; the small rv32 proof on
+     cuda runs under torch.profiler with device activity only: the rv32
+     kernel census (launches and device ms per kernel, plain torch
+     launches, idle share; no trace file is written);
   6. the rv32 machine path: the native executor built (g++), the benchmark
      guest bench_guest_program(8, 256) run (24,729 cycles) and traced (18
      AIRs); every kernel shape of its proof checked against its plain
@@ -45,10 +48,7 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      counts zeroed just before and read just after, and every C call of
      the proof at a checked shape: guest_cycles, tracegen_s, proof_wall_s,
      proving_khz, per-phase ms, peak memory, the values `ood` observed,
-     verify_wall_s (True), a tampered public value (False), a warm proof,
-     and one more proof under torch.profiler with device activity only
-     (launches and device ms per kernel, plain torch launches, idle share;
-     no trace file is written);
+     verify_wall_s (True) and a tampered public value (False);
   7. the host entry point: ChunkTaskGenerator(stark=default_config()) with
      its proof cache in a fresh build/chip_smoke_chunk/; the chunk
      machine's kernel shapes (18 AIRs, from its executed traces) checked
@@ -57,10 +57,23 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      the launch counts zeroed just before and read just after, every C
      call at a checked shape: execute, prove and self-verify ms, launches
      per kernel (each nonzero), peak memory, the envelope's size and the
-     values `ood` observed; `UniversalVerifier` (True) and a flipped
-     `user_pvs_proof` byte (False); a second call answered from the cache
-     with no launch and an equal envelope;
-  8. the kernels line (JSON), the card line, and last the result line.
+     values `ood` observed; a flipped `user_pvs_proof` byte (False); a
+     second call answered from the cache with no launch and an equal
+     envelope;
+  8. the batch and bundle layers: BatchTaskGenerator (1 chunk a batch,
+     over phase 7's chunk 0 envelope after a JSON round trip) and
+     BundleTaskGenerator (1 batch a bundle); each machine's kernel shapes
+     checked before its proof; `Prover.gen_proof_stark` for the batch
+     (execute: the blob's zstd decode and KZG check; the host verification
+     of chunk 0, which stands as its independent verification; prove on
+     the card; self-verify) and for the bundle, with the launch counts
+     zeroed just before each and every C call at a checked shape; the
+     bundle envelope through `UniversalVerifier` (True) and with a flipped
+     `user_pvs_proof` byte (False); a batch task whose KZG proof is
+     tampered raises in execute with no launch; a second bundle call
+     answered from the cache;
+  9. the seconds of each phase, the kernels line (JSON), the card line,
+     and last the result line.
 The port imports no JAX; this script imports nothing of the JAX package.
 """
 
@@ -857,8 +870,8 @@ def rv32_cell(seed: int) -> dict:
     """Phase 6: the rv32 machine path. The executor built, the benchmark
     guest run and traced; every kernel shape of its proof checked against
     its plain version; then the proof at default_config() with the launch
-    counts zeroed just before (cold), verify (True), a tampered public value
-    (False), a warm proof and a kernel census of one more proof."""
+    counts zeroed just before (cold), verify (True) and a tampered public
+    value (False). The kernel census runs on phase 5's small guest."""
     import torch
 
     from zkvm_prover_tpu_torch.ops import ntt_fused
@@ -922,46 +935,33 @@ def rv32_cell(seed: int) -> dict:
                    "proof_wall_s": prove_s, "verify_wall_s": verify_s,
                    "proving_khz": info["guest_cycles"] / 1e3 / prove_s}
     print(f"[6] {json.dumps(bench_names)}", flush=True)
-
-    t0 = time.perf_counter()
-    warm = machine.prove_machine(insts, cfg)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    warm_phases = {k: v for k, v in warm.stat.items() if k.endswith("_ms")}
-    print(f"[6] warm proof in {warm_s:.3f} s: "
-          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in warm_phases.items()), flush=True)
-    del warm
-    census = kernel_census(lambda: machine.prove_machine(insts, cfg))
-    print(f"[6] kernel census of one more proof: wall {census['wall_ms']:.1f} ms, device busy "
-          f"{census['device_busy_ms']:.1f} ms, idle share {census['idle_share']:.4f}")
-    for name, row in census["per_kind"].items():
-        print(f"      {name:30s} launches {row['launches']:8d}  device ms {row['ms']:9.3f}")
     torch.cuda.empty_cache()
     return {**info, **bench_names,
             "airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces],
             "trace_cells": cells, "shape_checks": rows, "peak_bytes": peak, "phases_ms": phases, "ood_observed_values": n_obs,
             "launches": counts, "tampered_public_value": tampered,
-            "tampered_verify_s": tampered_s, "warm_prove_s": warm_s,
-            "warm_phases_ms": warm_phases, "census": census}
+            "tampered_verify_s": tampered_s}
 
 
 def small_rv32_cuda_equals_cpu():
     """The small keccak guest's 18-AIR proof at fast_test_config() on cuda
-    and on cpu: equal in every field but `stat`."""
+    (under the device-only profiler: the rv32 kernel census) and on cpu:
+    equal in every field but `stat`."""
     from zkvm_prover_tpu_torch.stark import machine
     from zkvm_prover_tpu_torch.stark.config import fast_test_config
 
     air_traces, _ = rv32_air_traces(*RV32_SMALL_GUEST)
     insts = [machine.AirInstance(a, t, p) for a, t, p in air_traces]
-    t0 = time.perf_counter()
-    p_cuda = machine.prove_machine(insts, fast_test_config(), device="cuda")
+    proofs = []
+    census = kernel_census(lambda: proofs.append(
+        machine.prove_machine(insts, fast_test_config(), device="cuda")))
     t1 = time.perf_counter()
     p_cpu = machine.prove_machine(insts, fast_test_config(), device="cpu")
     t2 = time.perf_counter()
-    proofs_equal(p_cuda, p_cpu)
-    if not machine.verify_machine([a for a, _, _ in air_traces], p_cuda, fast_test_config()):
+    proofs_equal(proofs[0], p_cpu)
+    if not machine.verify_machine([a for a, _, _ in air_traces], proofs[0], fast_test_config()):
         raise AssertionError("the small rv32 proof does not verify")
-    return {"cuda_s": t1 - t0, "cpu_s": t2 - t1}
+    return {"cuda_profiled_s": census["wall_ms"] / 1e3, "cpu_s": t2 - t1, "census": census}
 
 
 def fibonacci_envelope_cuda_equals_cpu():
@@ -978,18 +978,142 @@ def fibonacci_envelope_cuda_equals_cpu():
             raise AssertionError(f"fibonacci envelopes differ in {name}")
 
 
-def chunk_cell(seed: int) -> dict:
+@contextlib.contextmanager
+def timed_verifications():
+    """Record every `UniversalVerifier.verify_stark_proof_with_vk` call made
+    while the block runs (a prover's host child verifications and its
+    self-verify): the app its vk names, the result and the seconds."""
+    from zkvm_prover_tpu_torch.host.app import app_for_vk
+    from zkvm_prover_tpu_torch.host.verifier import UniversalVerifier
+
+    original = UniversalVerifier.__dict__["verify_stark_proof_with_vk"]
+    calls = []
+
+    def timed(vk, proof, stark=None, app=None):
+        t0 = time.perf_counter()
+        ok = original.__func__(vk, proof, stark, app=app)
+        named = app or app_for_vk(vk)
+        calls.append({"app": named.name if named else None, "ok": ok,
+                      "s": time.perf_counter() - t0})
+        return ok
+
+    UniversalVerifier.verify_stark_proof_with_vk = staticmethod(timed)
+    try:
+        yield calls
+    finally:
+        UniversalVerifier.verify_stark_proof_with_vk = original
+
+
+def executed_machine(tag: str, name: str, prover, task) -> list:
+    """The app's machine for `task`: (AIR, trace, public values) triples."""
+    instances, _ = prover.app.execute(task)
+    air_traces = [(i.air, i.trace, i.public_values) for i in instances]
+    cells = sum(int(t.size) for _, t, _ in air_traces)
+    print(f"[{tag}] {name}: {len(air_traces)} AIRs, {cells} cells", flush=True)
+    for a, t, p in air_traces:
+        print(f"      {type(a).__name__:20s} {str(t.shape):14s} pvs {len(p)}")
+    return air_traces
+
+
+def checked_shapes(tag: str, name: str, shapes: dict, seed: int) -> tuple:
+    """`check_rv32_shapes` with its C calls logged: (rows, calls)."""
+    with log_calls() as calls:
+        rows = check_rv32_shapes(shapes, seed)
+    print(f"[{tag}] {len(rows)} {name} kernel shapes exact against their plain versions "
+          f"({len(set(call_key(e, a) for e, a in calls))} distinct C calls)", flush=True)
+    return rows, calls
+
+
+def prove_task(tag: str, prover, task, checked) -> tuple:
+    """One `Prover.gen_proof_stark` of `task` (execute, host child
+    verification, prove on the card, self-verify) with the launch counts
+    zeroed just before and read just after; every C call at a shape that
+    `checked` (logged C calls) holds, every counter nonzero. Returns
+    (envelope, measurements)."""
+    import torch
+
+    from zkvm_prover_tpu_torch.host import serialization
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with log_calls() as used, timed_verifications() as verifications:
+        t0 = time.perf_counter()
+        env = prover.gen_proof_stark(task)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    unchecked = sorted(set(call_key(e, a) for e, a in used)
+                       - set(call_key(e, a) for e, a in checked))
+    if unchecked:
+        raise AssertionError(f"{prover.app.name} proof launched unchecked kernel shapes: "
+                             f"{unchecked}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {prover.app.name} path: {missing}")
+    *children, self_check = verifications
+    if len(children) != len(task.aggregated_proofs) or not all(
+            c["ok"] for c in verifications) or self_check["app"] != prover.app.name:
+        raise AssertionError(f"unexpected verifications in the {prover.app.name} proof: "
+                             f"{verifications}")
+    exec_ms, prove_ms = env.stat.execution_time_mills, env.stat.proving_time_mills
+    env_bytes = len(json.dumps(env.to_dict()))
+    n_obs = observed_values(serialization.decode_machine_proof(env.proof))
+    child_text = "".join(f", child {c['app']} verified: {c['ok']} in {c['s'] * 1e3:.0f} ms"
+                         for c in children)
+    print(f"[{tag}] {prover.app.name} gen_proof_stark {wall_s:.3f} s: execute {exec_ms} ms"
+          f"{child_text}, prove {prove_ms} ms, self-verify {self_check['s'] * 1e3:.0f} ms; "
+          f"peak {peak} bytes; envelope {env_bytes} bytes of JSON ({len(env.proof)} proof "
+          f"bytes); ood observed {n_obs} values", flush=True)
+    print(f"[{tag}] launches: {counts}", flush=True)
+    return env, {"gen_proof_stark_s": wall_s, "execute_ms": exec_ms, "prove_ms": prove_ms,
+                 "child_verifications": children, "self_verify_ms": self_check["s"] * 1e3,
+                 "peak_bytes": peak, "envelope_json_bytes": env_bytes,
+                 "proof_bytes": len(env.proof), "ood_observed_values": n_obs,
+                 "launches": counts}
+
+
+def tampered_envelope(verifier, env) -> tuple:
+    """The verifier's answer on `env` with one `user_pvs_proof` byte
+    flipped, and its seconds."""
+    from zkvm_prover_tpu_torch.host import StarkProof
+
+    bad = StarkProof.from_dict(env.to_dict())
+    bad.user_pvs_proof = bytes([bad.user_pvs_proof[0] ^ 1]) + bad.user_pvs_proof[1:]
+    t0 = time.perf_counter()
+    return verifier.verify_stark_proof(bad), time.perf_counter() - t0
+
+
+def answered_from_cache(tag: str, prover, task, env) -> float:
+    """A second call for `task`: no launch and the same envelope."""
+    reset_counts()
+    t0 = time.perf_counter()
+    cached = prover.gen_proof_stark(task)
+    cached_s = time.perf_counter() - t0
+    launches = sum(launch_counts().values())
+    print(f"[{tag}] second {prover.app.name} call from the cache in {cached_s:.3f} s, "
+          f"{launches} launches, equal envelope: {cached.to_dict() == env.to_dict()}",
+          flush=True)
+    if launches or cached.to_dict() != env.to_dict():
+        raise AssertionError(f"the second {prover.app.name} call was not answered from the cache")
+    return cached_s
+
+
+def chunk_cell(seed: int):
     """Phase 7: the host entry point. Chunk 0 of ChunkTaskGenerator at
     default_config(): its kernel shapes checked first, then one
     `Prover.gen_proof_stark` on a fresh cache (execute, prove on the card,
-    self-verify) with the launch counts zeroed just before, an independent
-    `UniversalVerifier`, a tampered PI hash, and a second call that the
-    cache answers."""
+    self-verify) with the launch counts zeroed just before, a tampered PI
+    hash, and a second call that the cache answers. Returns (report,
+    generator); the generator holds the envelope, after a JSON round trip,
+    as its chunk 0 proof, which phase 8's batch prover verifies as chunk 0's
+    independent verification."""
     import shutil
 
     import torch
 
-    from zkvm_prover_tpu_torch.host import StarkProof, UniversalVerifier, serialization
+    from zkvm_prover_tpu_torch.host import StarkProof, UniversalVerifier
     from zkvm_prover_tpu_torch.integration import ChunkTaskGenerator
     from zkvm_prover_tpu_torch.stark.config import default_config
 
@@ -1000,77 +1124,122 @@ def chunk_cell(seed: int) -> dict:
     os.environ["OUTPUT_DIR"] = run_dir
     gen = ChunkTaskGenerator(stark=cfg)
     task = gen.task(0)
-    prover = gen.prover
-    instances, _ = prover.app.execute(task)
-    air_traces = [(i.air, i.trace, i.public_values) for i in instances]
-    cells = sum(int(t.size) for _, t, _ in air_traces)
-    print(f"[7] chunk 0 ({gen.blocks_per_chunk} blocks): {len(air_traces)} AIRs, {cells} cells",
-          flush=True)
-    for a, t, p in air_traces:
-        print(f"      {type(a).__name__:20s} {str(t.shape):14s} pvs {len(p)}")
-    with log_calls() as checked:
-        rows = check_rv32_shapes(rv32_shapes(air_traces), seed)
-    print(f"[7] {len(rows)} chunk kernel shapes exact against their plain versions "
-          f"({len(set(call_key(e, a) for e, a in checked))} distinct C calls)", flush=True)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    with log_calls() as used:
-        t0 = time.perf_counter()
-        env = prover.gen_proof_stark(task)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    unchecked = sorted(set(call_key(e, a) for e, a in used)
-                       - set(call_key(e, a) for e, a in checked))
-    if unchecked:
-        raise AssertionError(f"chunk proof launched unchecked kernel shapes: {unchecked}")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the chunk path: {missing}")
-    exec_ms, prove_ms = env.stat.execution_time_mills, env.stat.proving_time_mills
-    self_verify_ms = wall_s * 1e3 - exec_ms - prove_ms
-    env_bytes = len(json.dumps(env.to_dict()))
-    n_obs = observed_values(serialization.decode_machine_proof(env.proof))
-    print(f"[7] gen_proof_stark {wall_s:.3f} s: execute {exec_ms} ms, prove {prove_ms} ms, "
-          f"self-verify {self_verify_ms:.0f} ms; peak {peak} bytes; envelope {env_bytes} "
-          f"bytes of JSON ({len(env.proof)} proof bytes); ood observed {n_obs} values",
-          flush=True)
-    print(f"[7] launches: {counts}", flush=True)
-
-    verifier = UniversalVerifier("chunk", cfg)
-    t0 = time.perf_counter()
-    ok = verifier.verify_stark_proof(StarkProof.from_dict(json.loads(json.dumps(env.to_dict()))))
-    verify_s = time.perf_counter() - t0
-    bad = StarkProof.from_dict(env.to_dict())
-    bad.user_pvs_proof = bytes([bad.user_pvs_proof[0] ^ 1]) + bad.user_pvs_proof[1:]
-    t0 = time.perf_counter()
-    tampered = verifier.verify_stark_proof(bad)
-    tampered_s = time.perf_counter() - t0
-    print(f"[7] UniversalVerifier: {ok} in {verify_s:.3f} s; flipped user_pvs_proof byte: "
-          f"{tampered} in {tampered_s:.3f} s", flush=True)
-    if not ok or tampered:
-        raise AssertionError("chunk verification phase failed")
-
-    reset_counts()
-    t0 = time.perf_counter()
-    cached = prover.gen_proof_stark(task)
-    cached_s = time.perf_counter() - t0
-    cached_launches = sum(launch_counts().values())
-    print(f"[7] second call from the cache in {cached_s:.3f} s, {cached_launches} launches, "
-          f"equal envelope: {cached.to_dict() == env.to_dict()}", flush=True)
-    if cached_launches or cached.to_dict() != env.to_dict():
-        raise AssertionError("the second call was not answered from the cache")
+    air_traces = executed_machine("7", f"chunk 0 ({gen.blocks_per_chunk} blocks)",
+                                  gen.prover, task)
+    rows, checked = checked_shapes("7", "chunk", rv32_shapes(air_traces), seed)
+    env, measured = prove_task("7", gen.prover, task, checked)
+    tampered, tampered_s = tampered_envelope(UniversalVerifier("chunk", cfg), env)
+    print(f"[7] flipped user_pvs_proof byte: {tampered} in {tampered_s:.3f} s", flush=True)
+    if tampered:
+        raise AssertionError("the chunk verifier accepted a tampered envelope")
+    cached_s = answered_from_cache("7", gen.prover, task, env)
     torch.cuda.empty_cache()
+    # phase 8's batch takes this proof as its child (memoized here, so the
+    # generator does not prove and verify it again)
+    gen._proofs[0] = StarkProof.from_dict(json.loads(json.dumps(env.to_dict())))
     return {"airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces],
-            "trace_cells": cells, "shape_checks": rows, "gen_proof_stark_s": wall_s,
-            "execute_ms": exec_ms, "prove_ms": prove_ms, "self_verify_ms": self_verify_ms,
-            "verify_s": verify_s, "peak_bytes": peak, "envelope_json_bytes": env_bytes,
-            "proof_bytes": len(env.proof), "ood_observed_values": n_obs, "launches": counts,
-            "tampered_pi_hash": tampered, "tampered_verify_s": tampered_s,
-            "cached_s": cached_s}
+            "trace_cells": sum(int(t.size) for _, t, _ in air_traces), "shape_checks": rows,
+            **measured, "tampered_pi_hash": tampered, "tampered_verify_s": tampered_s,
+            "cached_s": cached_s}, gen
+
+
+def tampered_kzg_task(task, how: str):
+    """The batch task with its KZG opening proof changed: one byte of y
+    flipped (the point leaves the curve) or y replaced by Q - y (the
+    negated point: on the curve, so the pairing check decides)."""
+    import pickle
+
+    from zkvm_prover_tpu_torch.fields import bls12_381 as bls
+    from zkvm_prover_tpu_torch.host import ProvingTask
+    from zkvm_prover_tpu_torch.host.scroll_apps import load_witness
+
+    inner, children = load_witness(task.serialized_witness[0])
+    pe = inner.point_eval_witness
+    if how == "flipped byte":
+        pe.kzg_proof_y = pe.kzg_proof_y[:-1] + bytes([pe.kzg_proof_y[-1] ^ 1])
+    else:
+        pe.kzg_proof_y = (bls.Q - int.from_bytes(pe.kzg_proof_y, "big")).to_bytes(48, "big")
+    return ProvingTask(serialized_witness=[pickle.dumps((inner, children))],
+                       aggregated_proofs=task.aggregated_proofs, fork_name=task.fork_name,
+                       identifier=None, vk=task.vk)
+
+
+def chain_cell(chunks, seed: int) -> dict:
+    """Phase 8: the batch and bundle layers over phase 7's chunk 0 proof.
+    BatchTaskGenerator (1 chunk a batch) and BundleTaskGenerator (1 batch a
+    bundle) at default_config(); each machine's kernel shapes checked
+    before its proof; `Prover.gen_proof_stark` for the batch (its host
+    child verification is chunk 0's independent verification) and then the
+    bundle; the bundle envelope through `UniversalVerifier` (True) and with
+    a flipped PI byte (False); a batch task with a tampered KZG proof
+    raises in execute with no launch; a second bundle call answered from
+    the cache."""
+    import torch
+
+    from zkvm_prover_tpu_torch.host import StarkProof, UniversalVerifier
+    from zkvm_prover_tpu_torch.integration import BatchTaskGenerator, BundleTaskGenerator
+
+    cfg = chunks.stark
+    batches = BatchTaskGenerator(chunks=chunks, chunks_per_batch=1)
+    bundles = BundleTaskGenerator(batches=batches, batches_per_bundle=1)
+    report = {}
+
+    task = batches.task(0)
+    air_traces = executed_machine("8", "batch 0 (1 chunk)", batches.prover, task)
+    shapes = rv32_shapes(air_traces)
+    rows, checked = checked_shapes("8", "batch", shapes, seed)
+    env, measured = prove_task("8", batches.prover, task, checked)
+    batches.add_proof(0, task, env)
+    report["batch"] = {"airs": [[type(a).__name__, list(t.shape), len(p)]
+                                for a, t, p in air_traces],
+                       "trace_cells": sum(int(t.size) for _, t, _ in air_traces),
+                       "shape_checks": rows, **measured}
+
+    bundle_task = bundles.task()
+    air_traces = executed_machine("8", "the bundle (1 batch)", bundles.prover, bundle_task)
+    new = {k: sorted(set(v) - set(shapes[k])) for k, v in rv32_shapes(air_traces).items()}
+    rows = []
+    if any(new.values()):
+        rows, calls = checked_shapes("8", "new bundle", new, seed + 1)
+        checked = checked + calls
+    bundle_env, measured = prove_task("8", bundles.prover, bundle_task, checked)
+    report["bundle"] = {"airs": [[type(a).__name__, list(t.shape), len(p)]
+                                 for a, t, p in air_traces],
+                        "trace_cells": sum(int(t.size) for _, t, _ in air_traces),
+                        "new_shape_checks": rows, **measured}
+
+    verifier = UniversalVerifier("bundle", cfg)
+    t0 = time.perf_counter()
+    ok = verifier.verify_stark_proof(
+        StarkProof.from_dict(json.loads(json.dumps(bundle_env.to_dict()))))
+    verify_s = time.perf_counter() - t0
+    tampered, tampered_s = tampered_envelope(verifier, bundle_env)
+    print(f"[8] bundle UniversalVerifier: {ok} in {verify_s:.3f} s; flipped user_pvs_proof "
+          f"byte: {tampered} in {tampered_s:.3f} s", flush=True)
+    if not ok or tampered:
+        raise AssertionError("bundle verification phase failed")
+    report.update(bundle_verify_s=verify_s, tampered_pi_hash=tampered,
+                  tampered_verify_s=tampered_s)
+
+    expected = {"flipped byte": "not a BLS12-381 G1 point",
+                "negated point": "verify_kzg_proof fail"}
+    for how, message in expected.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            batches.prover.gen_proof_stark(tampered_kzg_task(task, how))
+        except AssertionError as e:
+            raised = str(e)
+        launches = sum(launch_counts().values())
+        print(f"[8] batch task with its KZG proof's y {how}: raised {raised!r} in "
+              f"{time.perf_counter() - t0:.3f} s, {launches} launches", flush=True)
+        if raised is None or message not in raised or launches:
+            raise AssertionError(f"a KZG proof with y {how} was not rejected in execute")
+        report[f"tampered_kzg_{how.replace(' ', '_')}"] = raised
+    report["cached_s"] = answered_from_cache("8", bundles.prover, bundle_task, bundle_env)
+    torch.cuda.empty_cache()
+    return report
 
 
 def main() -> int:
@@ -1094,7 +1263,14 @@ def main() -> int:
     from zkvm_prover_tpu_torch.stark.config import default_config, fast_test_config
 
     t_all = time.perf_counter()
-    report = {"log_n": args.log_n, "seed": args.seed}
+    report = {"log_n": args.log_n, "seed": args.seed, "phase_s": {}}
+    t_phase = [t_all]
+
+    def phase_done(n: int) -> None:
+        now = time.perf_counter()
+        report["phase_s"][n] = now - t_phase[0]
+        t_phase[0] = now
+        print(f"[{n}] phase {n} took {report['phase_s'][n]:.1f} s", flush=True)
 
     # 1. card and build
     card = card_line()
@@ -1120,11 +1296,14 @@ def main() -> int:
         print(f"[1] {row['op']:16s} {row['per_clock_per_sm']:7.2f} per clock per SM "
               f"{row['sass']}", flush=True)
 
+    phase_done(1)
+
     # 2. kernels against their plain versions
     print("[2] kernels vs plain torch on the card; tolerance 0 (exact modular "
           "arithmetic: any mismatch fails)", flush=True)
     rows = check_kernels(args.log_n, NUM_COLS, args.seed)
     report["kernel_checks"] = rows
+    phase_done(2)
 
     # 3. the main path
     t0 = time.perf_counter()
@@ -1217,12 +1396,14 @@ def main() -> int:
     if not per_tree or max(per_tree) > 3:
         raise AssertionError("a Merkle tree took more than 3 compress launches")
     torch.cuda.empty_cache()
+    phase_done(3)
 
     # 4. the machine cell, on the same Poseidon2 inputs
     report["machine"] = machine_cell(trace, args.log_n, args.seed,
                                      os.path.dirname(args.out) or ".")
     del trace
     torch.cuda.empty_cache()
+    phase_done(4)
 
     # 5. cross-device identity
     small = poseidon2_trace(10, args.seed + 1)
@@ -1236,21 +1417,34 @@ def main() -> int:
     print("[5] small machine proofs (4 AIRs, 3 heights, a logUp bus) on cuda and cpu "
           "are identical", flush=True)
     report["small_rv32"] = small_rv32_cuda_equals_cpu()
+    census = report["small_rv32"]["census"]
     print(f"[5] small rv32 proofs (bench_guest_program{RV32_SMALL_GUEST}, 18 AIRs) on cuda "
-          f"({report['small_rv32']['cuda_s']:.1f} s) and cpu ({report['small_rv32']['cpu_s']:.1f} s) "
-          "are identical", flush=True)
+          f"({report['small_rv32']['cuda_profiled_s']:.1f} s, profiled) and cpu "
+          f"({report['small_rv32']['cpu_s']:.1f} s) are identical", flush=True)
+    print(f"[5] kernel census of the cuda proof: wall {census['wall_ms']:.1f} ms, device busy "
+          f"{census['device_busy_ms']:.1f} ms, idle share {census['idle_share']:.4f}")
+    for name, row in census["per_kind"].items():
+        print(f"      {name:30s} launches {row['launches']:8d}  device ms {row['ms']:9.3f}")
     fibonacci_envelope_cuda_equals_cpu()
     print("[5] fibonacci envelopes from Prover.gen_proof_stark on cuda and cpu are identical",
           flush=True)
+    phase_done(5)
 
     # 6. the rv32 machine path
     report["rv32"] = rv32_cell(args.seed + 3)
+    phase_done(6)
 
     # 7. the host entry point
-    report["chunk"] = chunk_cell(args.seed + 4)
+    report["chunk"], chunks = chunk_cell(args.seed + 4)
+    phase_done(7)
 
-    # 8. the kernels line: per kernel, its largest main-path shape; launches
-    # summed over the four paths (single-AIR proof, machine cell, rv32, chunk)
+    # 8. the batch and bundle layers over chunk 0
+    report["chain"] = chain_cell(chunks, args.seed + 5)
+    phase_done(8)
+
+    # 9. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the six paths (single-AIR proof, machine cell, rv32, chunk,
+    # batch, bundle)
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -1263,7 +1457,9 @@ def main() -> int:
         by_path = {"single_air": counts[row["counter"]],
                    "machine": report["machine"]["launches"][row["counter"]],
                    "rv32": report["rv32"]["launches"][row["counter"]],
-                   "chunk": report["chunk"]["launches"][row["counter"]]}
+                   "chunk": report["chunk"]["launches"][row["counter"]],
+                   "batch": report["chain"]["batch"]["launches"][row["counter"]],
+                   "bundle": report["chain"]["bundle"]["launches"][row["counter"]]}
         entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -1271,6 +1467,9 @@ def main() -> int:
                      shape=row["shape"], bytes=row["bytes"])
         line.append(entry)
     report["total_s"] = time.perf_counter() - t_all
+    print(f"[9] seconds by phase: "
+          + ", ".join(f"{n}: {t:.1f}" for n, t in report["phase_s"].items())
+          + f"; total {report['total_s']:.1f} s", flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

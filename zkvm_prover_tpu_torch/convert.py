@@ -2,12 +2,17 @@
 
 The system has no weights. What crosses between the two packages is the
 Poseidon2 round-constant tables, the traces (plain numpy, shared as they
-are) and the proofs. Nothing here imports the reference: proofs are read by
-duck typing, from any object with the reference's attribute names and
-numpy-valued fields.
+are), the proofs and the batch and bundle witnesses. Nothing here imports
+the reference: proofs are read by duck typing, from any object with the
+reference's attribute names and numpy-valued fields, and witnesses are
+rebuilt field by field as the port's classes of the same names.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import enum
+import importlib
 
 import numpy as np
 
@@ -100,3 +105,53 @@ def machine_proof_from_numpy(obj) -> machine.MachineProof:
             for lm, by_pos in obj.query_openings.items()},
         stat=dict(getattr(obj, "stat", {}) or {}),
     )
+
+
+# the port's modules whose dataclasses and enums make up the witnesses
+_WITNESS_MODULES = (
+    "types.base.fork_name", "types.base.version", "types.base.aggregation",
+    "types.base.chunk", "types.base.batch", "types.base.bundle",
+    "types.chunk.types", "types.chunk.witness", "types.batch.header",
+    "types.batch.witness", "types.bundle.witness", "circuits.batch_circuit",
+)
+
+
+def witness_classes() -> dict:
+    """The port's witness dataclasses and enums, by class name."""
+    out = {}
+    for name in _WITNESS_MODULES:
+        module = importlib.import_module(f"{__package__}.{name}")
+        for obj in vars(module).values():
+            if isinstance(obj, type) and obj.__module__ == module.__name__ and (
+                    dataclasses.is_dataclass(obj) or issubclass(obj, enum.Enum)):
+                out[obj.__name__] = obj
+    return out
+
+
+def rebuild(obj, classes: dict):
+    """`obj` rebuilt with `classes[type name]` for every dataclass and enum
+    in it, field by field; lists, tuples, bytes, ints, strings and None are
+    carried as they are. A class or field missing on either side raises."""
+    if isinstance(obj, enum.Enum) or dataclasses.is_dataclass(obj):
+        name = type(obj).__name__
+        if name not in classes:
+            raise TypeError(f"no class named {name} to rebuild")
+        cls = classes[name]
+        if isinstance(obj, enum.Enum):
+            return cls(obj.value)
+        src = sorted(f.name for f in dataclasses.fields(obj))
+        dst = sorted(f.name for f in dataclasses.fields(cls))
+        if src != dst:
+            raise TypeError(f"{name}: fields differ: {src} != {dst}")
+        return cls(**{k: rebuild(getattr(obj, k), classes) for k in dst})
+    if obj is None or isinstance(obj, (bool, int, str, bytes)):
+        return obj
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(rebuild(x, classes) for x in obj)
+    raise TypeError(f"cannot rebuild a {type(obj).__name__}")
+
+
+def witness_from_reference(obj):
+    """A reference witness object (a batch or bundle witness, or anything
+    made of the witness dataclasses and enums) as the port's classes."""
+    return rebuild(obj, witness_classes())

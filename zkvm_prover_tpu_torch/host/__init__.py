@@ -1,6 +1,6 @@
 """The host API: proving tasks in, verified proof envelopes out (the
-reference's `zkvm_prover_tpu/host/`). `scroll_apps` registers the chunk app
-when imported."""
+reference's `zkvm_prover_tpu/host/`). `scroll_apps` registers the chunk,
+batch and bundle apps when imported."""
 
 from .proof_types import EvmProof, ProofEnum, StarkProof, StarkProofStat
 from .task import ProvingTask

@@ -140,7 +140,14 @@ def register_app(cls) -> None:
     _REGISTRY[cls.name] = cls
 
 
+def _register_scroll_apps() -> None:
+    """The chunk, batch and bundle apps register when `scroll_apps` is
+    imported; it imports this module, so it is imported here on first use."""
+    from . import scroll_apps  # noqa: F401
+
+
 def get_app(name: str) -> CircuitApp:
+    _register_scroll_apps()
     return _REGISTRY[name]()
 
 
@@ -151,6 +158,7 @@ def app_for_vk(vk: bytes):
     """Resolve a registered app from its 64-byte vk (None if unknown)."""
     if vk in _VK_CACHE:
         return get_app(_VK_CACHE[vk])
+    _register_scroll_apps()
     for name in _REGISTRY:
         cand = get_app(name)
         if cand.vk_bytes() == vk:

@@ -2,20 +2,30 @@
 INSIDE the rv32 VM: the reference's `zkvm_prover_tpu/host/scroll_apps.py`
 over the port's machine.
 
-The chunk app executes the hash-reveal guest (vm/guests.py) on the native
-rv32 executor and proves the full v2 machine — CPU chips, keccak syscall
-chips (KeccakVmAir + KeccakfAir), program ROM, offline-checked
-registers/RAM, byte/xor tables — with the witness's PI preimage entering
-through the hint stream and the keccak-256 digest revealed as the proof's
-public values (reference flow: crates/circuits/chunk-circuit/src/main.rs:
-14-29, read -> compute -> reveal_pi_hash). The witness -> PI-preimage
-computation runs host-side, as in the reference.
+Each app (chunk, batch, bundle) executes the hash-reveal guest
+(vm/guests.py) on the native rv32 executor and proves the full v2 machine
+— CPU chips, keccak syscall chips (KeccakVmAir + KeccakfAir), program
+ROM, offline-checked registers/RAM, byte/xor tables — with the witness's
+PI preimage entering through the hint stream and the keccak-256 digest
+revealed as the proof's public values (reference flow:
+crates/circuits/chunk-circuit/src/main.rs:14-29, read -> compute ->
+reveal_pi_hash). The witness -> PI-preimage computation (block summaries,
+the blob's zstd decoding and KZG check, the batch fold) runs host-side, as
+in the reference.
 
-`BatchApp` and `BundleApp` are not ported yet (ROADMAP Queue 1 item 4).
+The batch and bundle witnesses arrive pickled. They are read through
+`_WitnessUnpickler`, which builds only the port's own witness classes: a
+pickle that names any other module, the reference package's included,
+raises `pickle.UnpicklingError`.
 """
 
 from __future__ import annotations
 
+import io
+import pickle
+
+from ..circuits.batch_circuit import BatchCircuit, BatchCircuitWitness
+from ..circuits.bundle_circuit import BundleCircuit
 from ..circuits.chunk_circuit import ChunkCircuit
 from ..models import rv32_v2
 from ..models.keccak_air import KeccakfAir
@@ -122,4 +132,47 @@ class ChunkApp(_VmHashApp):
         return ChunkCircuit.deserialize_witness(task.serialized_witness[0])
 
 
-register_app(ChunkApp)
+_WITNESS_MODULES = ("zkvm_prover_tpu_torch.circuits.batch_circuit",)
+_WITNESS_PACKAGE = "zkvm_prover_tpu_torch.types."
+
+
+class _WitnessUnpickler(pickle.Unpickler):
+    """Admits only classes defined in the port's witness modules."""
+
+    def find_class(self, module, name):
+        if not (module in _WITNESS_MODULES or module.startswith(_WITNESS_PACKAGE)) \
+                or "." in name:
+            raise pickle.UnpicklingError(f"witness may not name {module}.{name}")
+        try:
+            obj = super().find_class(module, name)
+        except (ImportError, AttributeError) as e:
+            raise pickle.UnpicklingError(f"no witness class {module}.{name}") from e
+        if not isinstance(obj, type) or obj.__module__ != module:
+            raise pickle.UnpicklingError(f"{module}.{name} is not a witness class")
+        return obj
+
+
+def load_witness(data: bytes):
+    """A pickled batch or bundle witness, read by `_WitnessUnpickler`."""
+    return _WitnessUnpickler(io.BytesIO(data)).load()
+
+
+class BatchApp(_VmHashApp):
+    name = "batch"
+    circuit = BatchCircuit
+
+    def _witness_from_task(self, task: ProvingTask):
+        inner, chunk_proofs = load_witness(task.serialized_witness[0])
+        return BatchCircuitWitness(inner=inner, chunk_proofs=chunk_proofs)
+
+
+class BundleApp(_VmHashApp):
+    name = "bundle"
+    circuit = BundleCircuit
+
+    def _witness_from_task(self, task: ProvingTask):
+        return load_witness(task.serialized_witness[0])
+
+
+for _cls in (ChunkApp, BatchApp, BundleApp):
+    register_app(_cls)

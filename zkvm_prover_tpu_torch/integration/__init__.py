@@ -1,7 +1,15 @@
-from .testers import ChunkTaskGenerator, output_dir, prove_verify
+from .testers import (
+    BatchTaskGenerator,
+    BundleTaskGenerator,
+    ChunkTaskGenerator,
+    output_dir,
+    prove_verify,
+)
 
 __all__ = [
     "ChunkTaskGenerator",
+    "BatchTaskGenerator",
+    "BundleTaskGenerator",
     "output_dir",
     "prove_verify",
 ]
