@@ -60,18 +60,27 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      values `ood` observed; a flipped `user_pvs_proof` byte (False); a
      second call answered from the cache with no launch and an equal
      envelope;
-  8. the batch and bundle layers: BatchTaskGenerator (1 chunk a batch,
-     over phase 7's chunk 0 envelope after a JSON round trip) and
-     BundleTaskGenerator (1 batch a bundle); each machine's kernel shapes
-     checked before its proof; `Prover.gen_proof_stark` for the batch
-     (execute: the blob's zstd decode and KZG check; the host verification
-     of chunk 0, which stands as its independent verification; prove on
-     the card; self-verify) and for the bundle, with the launch counts
-     zeroed just before each and every C call at a checked shape; the
-     bundle envelope through `UniversalVerifier` (True) and with a flipped
-     `user_pvs_proof` byte (False); a batch task whose KZG proof is
-     tampered raises in execute with no launch; a second bundle call
-     answered from the cache;
+  8. the batch and bundle layers: the batch through
+     `Prover(ProverConfig("batch", stark=default_config()))`, whose default
+     child verification is in-circuit, over BatchTaskGenerator's task 0 (1
+     chunk a batch, over phase 7's chunk 0 envelope after a JSON round
+     trip): with the launch counts zeroed just before, `gen_proof_stark`
+     executes (the blob's zstd decode and KZG check), makes chunk 0's
+     preprocessed commitments on the card, builds the wire verifier of
+     chunk 0 on the host, checks every kernel shape of the batch-plus-wire
+     machine against its plain version just before proving it on the card
+     (the check's launches taken back out), and self-verifies (the wire
+     program rebuilt from the claimed child); every C call at a checked
+     shape, every counter nonzero; the wire AIRs' rows, the build, pre-root,
+     prove (with its phase split) and self-verify times and the peak are
+     printed with the card's name and power limit; the envelope through
+     `UniversalVerifier` (True) and with a forged child record (False).
+     Then BundleTaskGenerator (1 batch a bundle, children verified on the
+     host: its check of the batch goes through the verifier's in-circuit
+     branch): its new shapes checked, `gen_proof_stark`, the envelope
+     through `UniversalVerifier` (True) and with a flipped `user_pvs_proof`
+     byte (False); a batch task whose KZG proof is tampered raises in
+     execute with no launch; a second bundle call answered from the cache;
   9. the seconds of each phase, the kernels line (JSON), the card line,
      and last the result line.
 The port imports no JAX; this script imports nothing of the JAX package.
@@ -350,14 +359,28 @@ def launch_counts():
     return {**ntt_fused.launches, **p2.launches, **mm.launches}
 
 
-def reset_counts():
+def _counters():
     from zkvm_prover_tpu_torch.ops import mont_matmul as mm
     from zkvm_prover_tpu_torch.ops import ntt_fused
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
 
-    for d in (ntt_fused.launches, ntt_fused.transforms, p2.launches, mm.launches):
+    return ntt_fused.launches, ntt_fused.transforms, p2.launches, mm.launches
+
+
+def reset_counts():
+    for d in _counters():
         for key in d:
             d[key] = 0
+
+
+def counts_snapshot() -> list:
+    return [(d, dict(d)) for d in _counters()]
+
+
+def restore_counts(snapshot) -> None:
+    """Set every counter back to its value in `counts_snapshot()`."""
+    for d, saved in snapshot:
+        d.update(saved)
 
 
 @contextlib.contextmanager
@@ -709,6 +732,9 @@ def rv32_shapes(air_traces) -> dict:
             "trees": sorted(trees), "k3_rows": sorted(k3_rows), "k3_cols": sorted(k3_cols)}
 
 
+PLAIN_ELEMS = 1 << 26   # elements a plain version takes at a time (int64 temporaries)
+
+
 def lde_plain(x, log_n: int, shift: int, canonical: bool, shift_in: int = 1):
     """Plain torch on the card: the prover's LDE (bit-reversed coefficients
     of x on shift_in * H, then its values on the two cosets of shift * G)."""
@@ -755,9 +781,16 @@ def check_rv32_shapes(shapes: dict, seed: int) -> list:
     for log_n, w, canonical in shapes["lde"]:
         x = random_field(gen, (1 << log_n, w), dev)
         c_rev, lde = machine._lde(x, shift, 1, canonical=canonical)
-        c_p, lde_p = lde_plain(x, log_n, shift, canonical)
-        record("ntt_lde", f"({1 << log_n},{w}){' canonical' if canonical else ''}",
-               max(max_err(c_rev, c_p), max_err(lde, lde_p)))
+        err = 0
+        # the columns are independent: the plain version takes a few at a
+        # time (its int64 temporaries at 2^24 rows)
+        step = max(1, PLAIN_ELEMS >> log_n)
+        for c0 in range(0, w, step):
+            c_p, lde_p = lde_plain(x[:, c0:c0 + step], log_n, shift, canonical)
+            err = max(err, max_err(c_rev[:, c0:c0 + step], c_p),
+                      max_err(lde[:, c0:c0 + step], lde_p))
+        record("ntt_lde", f"({1 << log_n},{w}){' canonical' if canonical else ''}", err)
+        del x, c_rev, lde
     for log_n in shapes["chunks"]:
         n = 1 << log_n
         q = random_field(gen, (2 * n, 4), dev)
@@ -774,8 +807,12 @@ def check_rv32_shapes(shapes: dict, seed: int) -> list:
         record("ntt_quotient_chunks", f"({2 * n},4) -> ({2 * n},8)", max(err, max_err(out, out_p)))
     for r_, c_ in shapes["hash_rows"]:
         mat = random_field(gen, (r_, c_), dev)
+        step = max(1, PLAIN_ELEMS // max(c_, 16))  # rows the plain version takes at a time
+        out = p2.hash_rows(mat)
         record("poseidon2_hash_rows", f"({r_},{c_})",
-               max_err(p2.hash_rows(mat), p2.hash_rows_plain(mat)))
+               max(max_err(out[r0:r0 + step], p2.hash_rows_plain(mat[r0:r0 + step]))
+                   for r0 in range(0, r_, step)))
+        del mat, out
     for m in shapes["trees"]:
         leaves = random_field(gen, (m, 8), dev)
         lm = m.bit_length() - 1
@@ -989,9 +1026,9 @@ def timed_verifications():
     original = UniversalVerifier.__dict__["verify_stark_proof_with_vk"]
     calls = []
 
-    def timed(vk, proof, stark=None, app=None):
+    def timed(vk, proof, stark=None, app=None, device=None):
         t0 = time.perf_counter()
-        ok = original.__func__(vk, proof, stark, app=app)
+        ok = original.__func__(vk, proof, stark, app=app, device=device)
         named = app or app_for_vk(vk)
         calls.append({"app": named.name if named else None, "ok": ok,
                       "s": time.perf_counter() - t0})
@@ -1106,9 +1143,9 @@ def chunk_cell(seed: int):
     `Prover.gen_proof_stark` on a fresh cache (execute, prove on the card,
     self-verify) with the launch counts zeroed just before, a tampered PI
     hash, and a second call that the cache answers. Returns (report,
-    generator); the generator holds the envelope, after a JSON round trip,
-    as its chunk 0 proof, which phase 8's batch prover verifies as chunk 0's
-    independent verification."""
+    generator, the checked C calls); the generator holds the envelope,
+    after a JSON round trip, as its chunk 0 proof, which phase 8's batch
+    verifies in-circuit."""
     import shutil
 
     import torch
@@ -1135,12 +1172,12 @@ def chunk_cell(seed: int):
     cached_s = answered_from_cache("7", gen.prover, task, env)
     torch.cuda.empty_cache()
     # phase 8's batch takes this proof as its child (memoized here, so the
-    # generator does not prove and verify it again)
+    # generator does not prove it again)
     gen._proofs[0] = StarkProof.from_dict(json.loads(json.dumps(env.to_dict())))
     return {"airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces],
             "trace_cells": sum(int(t.size) for _, t, _ in air_traces), "shape_checks": rows,
             **measured, "tampered_pi_hash": tampered, "tampered_verify_s": tampered_s,
-            "cached_s": cached_s}, gen
+            "cached_s": cached_s}, gen, checked
 
 
 def tampered_kzg_task(task, how: str):
@@ -1164,36 +1201,199 @@ def tampered_kzg_task(task, how: str):
                        identifier=None, vk=task.vk)
 
 
-def chain_cell(chunks, seed: int) -> dict:
+@contextlib.contextmanager
+def in_circuit_probes(used: list, seed: int):
+    """Observe a prover's in-circuit child verification while the block
+    runs, into the dict it yields: each `compute_pre_roots` call (device ms,
+    ending in a synchronize), each wire program build (host s, the wire
+    AIRs' rows and the ALU rows in use: the prover's build with the real
+    oracle, then the self-verify's rebuild with the dummy one), and
+    `prove_machine`, which first checks every kernel shape of the machine it
+    is given against its plain version (`rv32_shapes`; the check's launches
+    are taken back out of the counters, its C calls out of `used`, and the
+    peak memory statistic is reset after it) and keeps the proof's own
+    wall-clock and phase split."""
+    import torch
+
+    from zkvm_prover_tpu_torch.host import prover as host_prover
+    from zkvm_prover_tpu_torch.recursion import aggregation
+    from zkvm_prover_tpu_torch.recursion.wire_air import N_OPS, WireAluAir
+    from zkvm_prover_tpu_torch.stark import machine
+
+    probes = {"pre_roots_ms": [], "builds": [], "checked": [], "proofs": []}
+    originals = (aggregation.compute_pre_roots, host_prover.build_child_verification,
+                 aggregation.build_child_verification, machine.prove_machine)
+
+    def pre_roots(airs, shape, device=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals[0](airs, shape, device)
+        torch.cuda.synchronize()
+        probes["pre_roots_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_build(original):
+        def build(tag, slots, oracles):
+            t0 = time.perf_counter()
+            insts = original(tag, slots, oracles)
+            build_s = time.perf_counter() - t0
+            prog = next(i.air.program for i in insts if isinstance(i.air, WireAluAir))
+            probes["builds"].append({
+                "oracle": type(oracles[0]).__name__, "s": build_s,
+                "alu_rows_used": int(prog[:, :N_OPS].any(axis=1).sum()),
+                "rows": {type(i.air).__name__: int(i.trace.shape[0]) for i in insts}})
+            return insts
+        return build
+
+    def prove(instances, config=None, device=None):
+        air_traces = [(i.air, i.trace, i.public_values) for i in instances]
+        snapshot, n0 = counts_snapshot(), len(used)
+        t0 = time.perf_counter()
+        probes["shapes"] = rv32_shapes(air_traces)
+        probes["shape_checks"] = check_rv32_shapes(probes["shapes"], seed)
+        probes["shape_check_s"] = time.perf_counter() - t0
+        probes["checked"] += used[n0:]
+        del used[n0:]
+        restore_counts(snapshot)
+        probes["airs"] = [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        proof = originals[3](instances, config, device)
+        torch.cuda.synchronize()
+        probes["proofs"].append({"s": time.perf_counter() - t0, "stat": dict(proof.stat)})
+        return proof
+
+    aggregation.compute_pre_roots = pre_roots
+    host_prover.build_child_verification = timed_build(originals[1])
+    aggregation.build_child_verification = timed_build(originals[2])
+    machine.prove_machine = prove
+    try:
+        yield probes
+    finally:
+        (aggregation.compute_pre_roots, host_prover.build_child_verification,
+         aggregation.build_child_verification, machine.prove_machine) = originals
+
+
+def batch_in_circuit(prover, task, seed: int, child_checked: list) -> tuple:
+    """One `Prover.gen_proof_stark` of the batch task with the child verified
+    in-circuit: the launch counts zeroed just before and read just after;
+    the machine's kernel shapes (the batch's 18 AIRs and the wire AIRs)
+    checked against their plain versions just before its proof; every C
+    call of the path at a checked shape (the child's preprocessed
+    commitments at the shapes phase 7 checked, `child_checked`) and every
+    counter nonzero. Returns (envelope, measurements, the machine's shapes,
+    the checked C calls)."""
+    import torch
+
+    from zkvm_prover_tpu_torch.host import serialization
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with log_calls() as used, timed_verifications() as verifications, \
+            in_circuit_probes(used, seed) as probes:
+        t0 = time.perf_counter()
+        env = prover.gen_proof_stark(task)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    # the entry point's own time: the wall-clock less the shape check that
+    # the probe runs inside it
+    entry_s = wall_s - probes["shape_check_s"]
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    builds = probes["builds"]
+    proof = probes["proofs"][0]
+    n_obs = observed_values(serialization.decode_machine_proof(env.proof))
+    rows = builds[0]["rows"]
+    card = card_line()
+    print(f"[8] in-circuit batch ({card}): wire rows {rows}, ALU rows in use "
+          f"{builds[0]['alu_rows_used']}", flush=True)
+    print(f"[8] gen_proof_stark {entry_s:.3f} s (the wall-clock {wall_s:.3f} s less the "
+          f"shape check): execute {env.stat.execution_time_mills} ms; compute_pre_roots "
+          f"{[round(t, 1) for t in probes['pre_roots_ms']]} ms; wire build "
+          f"(real oracle) {builds[0]['s']:.3f} s; shape check (not the entry point's) "
+          f"{probes['shape_check_s']:.3f} s "
+          f"({len(probes['shape_checks'])} shapes); prove {proof['s'] * 1e3:.0f} ms; self-verify "
+          f"{verifications[0]['s']:.3f} s, of which the rebuild (dummy oracle) "
+          f"{builds[1]['s']:.3f} s; peak over prove and self-verify {peak} bytes; "
+          f"{len(env.proof)} proof bytes; ood observed {n_obs} values", flush=True)
+    for key, val in proof["stat"].items():
+        if key.endswith("_ms"):
+            print(f"      {key:24s} {val:10.1f} ms, running peak "
+                  f"{proof['stat'].get(key[:-3] + '_peak_bytes')} bytes")
+    print(f"[8] launches: {counts}", flush=True)
+    checked = probes["checked"] + child_checked
+    unchecked = sorted(set(call_key(e, a) for e, a in used)
+                       - set(call_key(e, a) for e, a in checked))
+    if unchecked:
+        raise AssertionError(f"the in-circuit batch launched unchecked kernel shapes: {unchecked}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the in-circuit batch path: {missing}")
+    if ([b["oracle"] for b in builds] != ["RealOracle", "DummyOracle"]
+            or builds[0]["rows"] != builds[1]["rows"] or len(probes["proofs"]) != 1
+            or [(v["app"], v["ok"]) for v in verifications] != [("batch", True)]
+            or len(env.agg_children) != 1):
+        raise AssertionError(f"unexpected in-circuit batch path: builds {builds}, "
+                             f"verifications {verifications}")
+    return env, {"card": card, "gen_proof_stark_s": entry_s,
+                 "wall_s_with_shape_check": wall_s,
+                 "execute_ms": env.stat.execution_time_mills,
+                 "pre_roots_ms": probes["pre_roots_ms"], "wire_builds": builds,
+                 "shape_check_s": probes["shape_check_s"], "shape_checks": probes["shape_checks"],
+                 "airs": probes["airs"], "prove_ms": proof["s"] * 1e3,
+                 "phases_ms": {k: v for k, v in proof["stat"].items() if k.endswith("_ms")},
+                 "self_verify_s": verifications[0]["s"], "peak_bytes": peak,
+                 "proof_bytes": len(env.proof), "ood_observed_values": n_obs,
+                 "launches": counts}, probes["shapes"], checked
+
+
+def chain_cell(chunks, chunk_checked: list, seed: int) -> dict:
     """Phase 8: the batch and bundle layers over phase 7's chunk 0 proof.
-    BatchTaskGenerator (1 chunk a batch) and BundleTaskGenerator (1 batch a
-    bundle) at default_config(); each machine's kernel shapes checked
-    before its proof; `Prover.gen_proof_stark` for the batch (its host
-    child verification is chunk 0's independent verification) and then the
-    bundle; the bundle envelope through `UniversalVerifier` (True) and with
-    a flipped PI byte (False); a batch task with a tampered KZG proof
+    The batch through `Prover(ProverConfig("batch", stark=default_config()))`
+    with its default in-circuit child verification, over BatchTaskGenerator's
+    task 0 (1 chunk a batch): the wire verifier of chunk 0 built, proven
+    beside the batch on the card and rebuilt by the self-verify; its
+    envelope through `UniversalVerifier` (True) and with a forged child
+    record (False). Then BundleTaskGenerator (1 batch a bundle, children
+    verified on the host: the batch's check goes through the verifier's
+    in-circuit branch), its envelope through `UniversalVerifier` (True) and
+    with a flipped PI byte (False); a batch task with a tampered KZG proof
     raises in execute with no launch; a second bundle call answered from
     the cache."""
     import torch
 
-    from zkvm_prover_tpu_torch.host import StarkProof, UniversalVerifier
+    from zkvm_prover_tpu_torch.fields import babybear as bb
+    from zkvm_prover_tpu_torch.host import Prover, ProverConfig, StarkProof, UniversalVerifier
     from zkvm_prover_tpu_torch.integration import BatchTaskGenerator, BundleTaskGenerator
 
     cfg = chunks.stark
     batches = BatchTaskGenerator(chunks=chunks, chunks_per_batch=1)
     bundles = BundleTaskGenerator(batches=batches, batches_per_bundle=1)
+    prover = Prover(ProverConfig("batch", stark=cfg))
     report = {}
 
     task = batches.task(0)
-    air_traces = executed_machine("8", "batch 0 (1 chunk)", batches.prover, task)
-    shapes = rv32_shapes(air_traces)
-    rows, checked = checked_shapes("8", "batch", shapes, seed)
-    env, measured = prove_task("8", batches.prover, task, checked)
+    env, measured, shapes, checked = batch_in_circuit(prover, task, seed, chunk_checked)
     batches.add_proof(0, task, env)
-    report["batch"] = {"airs": [[type(a).__name__, list(t.shape), len(p)]
-                                for a, t, p in air_traces],
-                       "trace_cells": sum(int(t.size) for _, t, _ in air_traces),
-                       "shape_checks": rows, **measured}
+    report["batch"] = measured
+
+    verifier = UniversalVerifier("batch", cfg)
+    carried = StarkProof.from_dict(json.loads(json.dumps(env.to_dict())))
+    t0 = time.perf_counter()
+    ok = verifier.verify_stark_proof(carried)
+    verify_s = time.perf_counter() - t0
+    forged = StarkProof.from_dict(carried.to_dict())
+    forged.agg_children[0].pvs[0] = (forged.agg_children[0].pvs[0] + 1) % bb.P
+    t0 = time.perf_counter()
+    forged_ok = verifier.verify_stark_proof(forged)
+    forged_s = time.perf_counter() - t0
+    print(f"[8] batch UniversalVerifier: {ok} in {verify_s:.3f} s; forged child record: "
+          f"{forged_ok} in {forged_s:.3f} s", flush=True)
+    if not ok or forged_ok:
+        raise AssertionError("batch verification phase failed")
+    report.update(batch_verify_s=verify_s, forged_child_record=forged_ok,
+                  forged_verify_s=forged_s)
 
     bundle_task = bundles.task()
     air_traces = executed_machine("8", "the bundle (1 batch)", bundles.prover, bundle_task)
@@ -1228,7 +1428,7 @@ def chain_cell(chunks, seed: int) -> dict:
         t0 = time.perf_counter()
         raised = None
         try:
-            batches.prover.gen_proof_stark(tampered_kzg_task(task, how))
+            prover.gen_proof_stark(tampered_kzg_task(task, how))
         except AssertionError as e:
             raised = str(e)
         launches = sum(launch_counts().values())
@@ -1435,11 +1635,11 @@ def main() -> int:
     phase_done(6)
 
     # 7. the host entry point
-    report["chunk"], chunks = chunk_cell(args.seed + 4)
+    report["chunk"], chunks, chunk_checked = chunk_cell(args.seed + 4)
     phase_done(7)
 
     # 8. the batch and bundle layers over chunk 0
-    report["chain"] = chain_cell(chunks, args.seed + 5)
+    report["chain"] = chain_cell(chunks, chunk_checked, args.seed + 5)
     phase_done(8)
 
     # 9. the kernels line: per kernel, its largest main-path shape; launches

@@ -1188,9 +1188,10 @@ def test_batch_and_bundle_envelopes_equal_reference(tmp_path, monkeypatch):
         for field in ("proof", "user_pvs_proof", "baseline", "deferral_merkle_proofs"):
             assert getattr(port, field) == getattr(ref_env, field), (name, field)
         assert port.stat.total_cycles == ref_env.stat.total_cycles
-        assert UniversalVerifier(name, tiny).verify_stark_proof(_carried(ProofEnum, ref_env))
+        verifier = UniversalVerifier(name, tiny, device="cpu")
+        assert verifier.verify_stark_proof(_carried(ProofEnum, ref_env))
         assert RefVerifier(name, ref_tiny).verify_stark_proof(_carried(RefProofEnum, port))
-        for proof_enum, verifier in ((ProofEnum, UniversalVerifier(name, tiny)),
+        for proof_enum, verifier in ((ProofEnum, verifier),
                                      (RefProofEnum, RefVerifier(name, ref_tiny))):
             bad = _carried(proof_enum, port)
             bad.user_pvs_proof = bytes([bad.user_pvs_proof[0] ^ 1]) + bad.user_pvs_proof[1:]

@@ -510,3 +510,55 @@ def test_host_prover_defaults_to_the_card(cuda):
     for c, b in zip(counters, before):
         for key in c:
             assert c[key] > b[key], key
+
+
+# ---------------------------------------------------------------------------
+# recursion (zkvm_prover_tpu_torch/recursion)
+# ---------------------------------------------------------------------------
+
+
+def _tiny():
+    from zkvm_prover_tpu_torch.stark.config import StarkConfig
+    from zkvm_prover_tpu_torch.stark.fri import FriConfig
+
+    return StarkConfig(fri=FriConfig(log_blowup=1, num_queries=2, proof_of_work_bits=2))
+
+
+def test_recursion_pre_roots_cuda_equal_cpu(cuda):
+    """The preprocessed commitments of a wire program (WireAluAir and
+    WirePoseidonAir at two heights), made on the card and on the host."""
+    from zkvm_prover_tpu_torch.recursion import CircuitBuilder
+    from zkvm_prover_tpu_torch.recursion import stark_verifier as sv
+
+    bld = CircuitBuilder()
+    acc = bld.const(3)
+    for _ in range(40):
+        acc = bld.mul(acc, bld.add(acc, bld.one()))
+    for w in bld.poseidon([acc] * 16):
+        bld.assert_zero(bld.mul(w, bld.zero()))
+    insts = bld.finalize()
+    airs = [i.air for i in insts]
+    shape = sv.shape_of(airs, [int(i.trace.shape[0]).bit_length() - 1 for i in insts], _tiny())
+    a, b = sv.compute_pre_roots(airs, shape, cuda), sv.compute_pre_roots(airs, shape, "cpu")
+    assert sorted(a) == sorted(b) and len(a) == 2
+    for lm in a:
+        np.testing.assert_array_equal(a[lm], b[lm])
+
+
+def test_recursion_leaf_node_cuda_equals_cpu(cuda):
+    """A leaf node over one Fibonacci child at 2 queries: the node proof on
+    the card equals the host's, and verifies."""
+    from zkvm_prover_tpu_torch.models.fibonacci import FibonacciAir
+    from zkvm_prover_tpu_torch.recursion import aggregation as agg
+    from zkvm_prover_tpu_torch.stark import machine
+
+    air = FibonacciAir()
+    trace, pvs = air.generate_trace(3)
+    child = machine.prove_machine([machine.AirInstance(air, trace, pvs)], _tiny(), device="cpu")
+    proofs = {}
+    for dev in (cuda, "cpu"):
+        slot = agg.ChildSlot([FibonacciAir()], [3], _tiny(), dev)
+        prog = agg.AggNodeProgram(agg.TAG_LEAF, [slot], _tiny(), dev)
+        proofs[str(dev)], pi = prog.prove([child])
+        assert prog.verify(proofs[str(dev)], expected_digest=pi)
+    _proofs_equal(proofs["cuda"], proofs["cpu"])

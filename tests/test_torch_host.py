@@ -6,13 +6,15 @@ packages: the fibonacci app (log_n 4) and the fib-double app, each proven
 once per module by each package (the port on `device="cpu"`) at
 `fast_test_config`. The envelopes are equal in every field but `stat`,
 each verifier accepts the other's envelope after a JSON round trip, and
-tampered or wrong-vk envelopes give False in both. The stored proof
+tampered or wrong-vk envelopes give False in both; a task with an
+aggregated child proves it in-circuit by default. The stored proof
 `tests/testdata/fibonacci-proof.json` verifies through the port. The chunk
 app is held to the reference without a proof (witnesses, serialized
 witness bytes, PI hash, the executed machine's traces and public values);
 its whole envelope at a tiny config runs under `slow`. The paths the port
 does not have yet raise `NotImplementedError`, and the port's host,
-integration and chunk packages import neither JAX nor `cryptography`."""
+integration, chunk and recursion packages import neither JAX nor
+`cryptography`."""
 
 import copy
 import json
@@ -146,7 +148,7 @@ def test_envelope_equals_reference(proven, app_name):
 def test_each_verifier_accepts_the_other(proven, app_name, verifier_pkg):
     other = "port" if verifier_pkg == "reference" else "reference"
     api = _api(verifier_pkg)
-    v = api["Verifier"](app_name, api["cfg"])
+    v = api["Verifier"](app_name, api["cfg"], **api["extra"])
     for pkg in (other, verifier_pkg):
         assert v.verify_stark_proof(_carried(verifier_pkg, proven[app_name, pkg][2])) is True
 
@@ -195,9 +197,9 @@ def _tampered(pkg, app_name, proven, what):
 def test_tampered_envelope_rejected(proven, pkg, app_name, what):
     api = _api(pkg)
     vk, env = _tampered(pkg, app_name, proven, what)
-    assert not api["Verifier"].verify_stark_proof_with_vk(vk, env, api["cfg"])
+    assert not api["Verifier"].verify_stark_proof_with_vk(vk, env, api["cfg"], **api["extra"])
     if what == "pi_hash_byte":
-        assert not api["Verifier"](app_name, api["cfg"]).verify_stark_proof(env)
+        assert not api["Verifier"](app_name, api["cfg"], **api["extra"]).verify_stark_proof(env)
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
@@ -237,12 +239,14 @@ def test_stored_proof_verifies_and_rejects_a_flipped_byte():
     proof = StarkProof.from_dict(d["proof"])
     assert proof.baseline == app.vk_bytes()
     cfg = StarkConfig(fri=FriConfig(log_blowup=1, **d["fri"]))
-    assert UniversalVerifier.verify_stark_proof_with_vk(app.vk_bytes(), proof, cfg) is True
+    assert UniversalVerifier.verify_stark_proof_with_vk(app.vk_bytes(), proof, cfg,
+                                                    device="cpu") is True
     raw = bytearray(proof.proof)
     raw[len(raw) // 2] ^= 1
     bad = StarkProof.from_dict(d["proof"])
     bad.proof = bytes(raw)
-    assert UniversalVerifier.verify_stark_proof_with_vk(app.vk_bytes(), bad, cfg) is False
+    assert UniversalVerifier.verify_stark_proof_with_vk(app.vk_bytes(), bad, cfg,
+                                                    device="cpu") is False
 
 
 @pytest.mark.parametrize("child_ok", [True, False])
@@ -387,16 +391,32 @@ def test_airs_for_meta_rejects(chunks, pkg, what):
 
 
 # ---------------------------------------------------------------------------
-# the paths that are not ported raise
+# the in-circuit round trip; the paths that are not ported raise
 # ---------------------------------------------------------------------------
 
 
 def test_in_circuit_aggregation_raises(proven):
-    child = proven["fibonacci", "port"][2]
-    prover = _prover("port", "fibonacci")
+    """An in-circuit round trip (the name is the one the test had while the
+    path raised `NotImplementedError`, kept so that its history follows
+    it): with the default child verification, in-circuit, a fibonacci task
+    over a fibonacci envelope (both at 2 queries and 2 PoW bits, which
+    keeps the wire verifier small) proves with the verifier beside it,
+    carries the aggregation claim and verifies after a JSON round trip; a
+    forged child public value gives False."""
+    tiny = StarkConfig(fri=FriConfig(log_blowup=1, num_queries=2, proof_of_work_bits=2))
+    prover = Prover.setup(ProverConfig(app_name="fibonacci", stark=tiny, device="cpu"))
     assert prover.config.child_verification == "in-circuit"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        prover.gen_proof_stark(_task("port", "fibonacci", aggregated_proofs=[child]))
+    witness = [json.dumps({"log_n": 3, "x0": 1, "x1": 1}).encode()]
+    child = prover.gen_proof_stark(ProvingTask(serialized_witness=witness))
+    env = prover.gen_proof_stark(ProvingTask(serialized_witness=witness,
+                                             aggregated_proofs=[child]))
+    assert [r.vk for r in env.agg_children] == [child.baseline]
+    assert len(env.input_commits) == 1
+    verifier = UniversalVerifier("fibonacci", tiny, device="cpu")
+    carried = _carried("port", env)
+    assert verifier.verify_stark_proof(carried)
+    carried.agg_children[0].pvs[0] = (carried.agg_children[0].pvs[0] + 1) % 100
+    assert verifier.verify_stark_proof(carried) is False
 
 
 def test_with_snark_raises():
@@ -420,14 +440,17 @@ def test_chunk_witness_with_block_witnesses_raises(chunks):
 
 @pytest.mark.parametrize("what", ["agg_children", "deferral_discharge", "evm_proof"])
 def test_unported_verifier_paths_raise(proven, what):
+    """The deferral discharge and EvmProof paths still raise; a forged
+    `AggChildRecord` on an envelope that aggregates nothing gives False."""
     env = _carried("port", proven["fibonacci", "port"][2])
-    v = UniversalVerifier("fibonacci", fast_test_config())
+    v = UniversalVerifier("fibonacci", fast_test_config(), device="cpu")
+    if what == "agg_children":
+        env.agg_children = [AggChildRecord(vk=env.baseline, log_ns=[4], pvs=[1])]
+        assert v.verify_stark_proof(env) is False
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if what == "evm_proof":
             v.verify_evm_proof(EvmProof(proof=b"\x00", instances=b"\x00" * 32))
-        elif what == "agg_children":
-            env.agg_children = [AggChildRecord(vk=env.baseline, log_ns=[4], pvs=[1])]
-            v.verify_stark_proof(env)
         else:
             env.deferral_discharge = b"\x01"
             v.verify_stark_proof(env)
@@ -447,6 +470,8 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import zkvm_prover_tpu_torch.host, zkvm_prover_tpu_torch.integration
 import zkvm_prover_tpu_torch.types.chunk, zkvm_prover_tpu_torch.circuits
+import zkvm_prover_tpu_torch.recursion, zkvm_prover_tpu_torch.recursion.aggregation
+import zkvm_prover_tpu_torch.stark.debug
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "cryptography", "zkvm_prover_tpu")]
 print("clean")
 """
@@ -484,5 +509,6 @@ def test_chunk_envelope_equals_reference(tmp_path, monkeypatch):
     for name in ("proof", "user_pvs_proof", "baseline", "deferral_merkle_proofs"):
         assert getattr(port, name) == getattr(ref, name), name
     assert port.stat.total_cycles == ref.stat.total_cycles
-    assert UniversalVerifier("chunk", tiny).verify_stark_proof(_carried("port", ref)) is True
+    verifier = UniversalVerifier("chunk", tiny, device="cpu")
+    assert verifier.verify_stark_proof(_carried("port", ref)) is True
     assert RefVerifier("chunk", ref_tiny).verify_stark_proof(_carried("reference", port))

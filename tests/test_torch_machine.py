@@ -156,8 +156,9 @@ def test_each_verifier_checks_the_other(proofs, case):
     ref_airs, airs, ref_proof, proof = proofs[case]
     valid = CASES[case][1]
     cfg, ref_cfg = fast_test_config(), ref_fast_config()
-    assert machine.verify_machine(airs, proof, cfg) is valid
-    assert machine.verify_machine(airs, machine_proof_from_numpy(ref_proof), cfg) is valid
+    assert machine.verify_machine(airs, proof, cfg, device="cpu") is valid
+    assert machine.verify_machine(airs, machine_proof_from_numpy(ref_proof), cfg,
+                                  device="cpu") is valid
     assert ref_machine.verify_machine(ref_airs, proof, ref_cfg) is valid
 
 
@@ -235,7 +236,8 @@ def test_tampered_machine_proofs_rejected_by_both(proofs, what):
     ref_airs, airs, ref_proof, proof = proofs["lookup_and_fib"]
     if what == "public_value":
         ref_airs, airs, ref_proof, proof = proofs["fib4_dbl3"]
-    assert machine.verify_machine(airs, _tampered(proof, what), fast_test_config()) is False
+    assert machine.verify_machine(airs, _tampered(proof, what), fast_test_config(),
+                                  device="cpu") is False
     assert not ref_machine.verify_machine(ref_airs, _tampered(ref_proof, what),
                                           ref_fast_config())
 
@@ -243,7 +245,8 @@ def test_tampered_machine_proofs_rejected_by_both(proofs, what):
 @pytest.mark.parametrize("what", OUT_OF_RANGE)
 def test_malformed_machine_proof_returns_false(proofs, what):
     _, airs, _, proof = proofs["lookup_and_fib"]
-    assert machine.verify_machine(airs, _tampered(proof, what), fast_test_config()) is False
+    assert machine.verify_machine(airs, _tampered(proof, what), fast_test_config(),
+                                  device="cpu") is False
 
 
 def test_prove_machine_without_device_needs_a_card(monkeypatch):

@@ -63,8 +63,49 @@ def test_permute(width):
 
 @pytest.mark.parametrize("width", [16, 24])
 def test_host_permute_np(width):
+    """The host permutation (C++, `ops/p2_native.py`) against the
+    reference's and the port's numpy version."""
     s = _rand(width + 1, (5, width))
     np.testing.assert_array_equal(p2.permute_np(s), ref_p2.permute_np(s))
+    np.testing.assert_array_equal(p2.permute_np(s), p2.permute_np_plain(s))
+
+
+def test_host_permute_follows_the_constants(restore_constants):
+    """Installed tables follow `load_constants` and `reset_constants`."""
+    s = _rand(14, (3, 16))
+    before = p2.permute_np(s)
+    p2.load_constants(16, _rand(10, (8, 16)), _rand(11, (13,)), _rand(12, (16,)))
+    np.testing.assert_array_equal(p2.permute_np(s), p2.permute_np_plain(s))
+    assert not np.array_equal(p2.permute_np(s), before)
+    p2.reset_constants()
+    np.testing.assert_array_equal(p2.permute_np(s), before)
+
+
+def test_native_permute_failure_raises(monkeypatch):
+    """A nonzero return code from the C++ library raises, rather than
+    returning the input as the permuted state."""
+    from zkvm_prover_tpu_torch.ops import p2_native
+
+    s = _rand(15, (2, 16))
+    p2.permute_np(s)  # the library is built and its tables installed
+    monkeypatch.setattr(p2_native._load(), "p2_permute", lambda *args: -1)
+    with pytest.raises(RuntimeError, match="native Poseidon2"):
+        p2.permute_np(s)
+
+
+def test_challenger_with_numpy_permutation_matches_reference(monkeypatch):
+    """The port's transcript equals the reference's also with the port's own
+    numpy permutation, which shares no code with the reference's engine."""
+    monkeypatch.setattr(p2, "permute_np", p2.permute_np_plain)
+    mine, ref = Challenger(), RefChallenger()
+    vals = _rand(4, (29,))
+    for c in (mine, ref):
+        c.observe_slice(vals[:17])
+    assert [mine.sample() for _ in range(9)] == [ref.sample() for _ in range(9)]
+    for c in (mine, ref):
+        c.observe_slice(vals[17:])
+    assert mine.sample_ext().tolist() == ref.sample_ext().tolist()
+    assert mine.sample_bits(11) == ref.sample_bits(11)
 
 
 def test_challenger_matches_reference():

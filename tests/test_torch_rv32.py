@@ -191,7 +191,7 @@ def test_each_verifier_accepts_the_other(small_proofs, which):
     ref_airs, airs, ref_proof, proof = small_proofs
     if which == "port_verifies_reference":
         assert machine.verify_machine(airs, machine_proof_from_numpy(ref_proof),
-                                      fast_test_config()) is True
+                                      fast_test_config(), device="cpu") is True
     else:
         assert ref_machine.verify_machine(ref_airs, proof, ref_fast_config())
 
@@ -224,7 +224,7 @@ def _tampered(airs, proof, what, program_cls):
 def test_tampered_small_proof_rejected_by_both(small_proofs, what):
     ref_airs, airs, ref_proof, proof = small_proofs
     bad_airs, bad = _tampered(airs, proof, what, rv32_v2.ProgramAirV2)
-    assert machine.verify_machine(bad_airs, bad, fast_test_config()) is False
+    assert machine.verify_machine(bad_airs, bad, fast_test_config(), device="cpu") is False
     bad_ref_airs, bad_ref = _tampered(ref_airs, ref_proof, what, ref_rv32_v2.ProgramAirV2)
     assert not ref_machine.verify_machine(bad_ref_airs, bad_ref, ref_fast_config())
 
@@ -287,4 +287,5 @@ def test_bench_guest_proof_equals_reference(runs, cfg_name):
     proof = machine.prove_machine(
         [machine.AirInstance(a, t, p) for a, t, p in port["traces"]], cfg, device="cpu")
     assert_proofs_equal(proof, ref_proof)
-    assert machine.verify_machine([a for a, _, _ in port["traces"]], proof, cfg) is True
+    assert machine.verify_machine([a for a, _, _ in port["traces"]], proof, cfg,
+                                  device="cpu") is True

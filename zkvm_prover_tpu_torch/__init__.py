@@ -25,8 +25,10 @@ Layout (the reference's module names, PyTorch inside):
   convert.py state carried across from the reference (constants, proofs)
 
 Device rule: a kernel wrapper runs its plain version only for a CPU tensor;
-for a CUDA tensor it launches the kernel or raises. `stark.prover.prove`
-runs on the card unless the caller passes `device="cpu"`.
+for a CUDA tensor it launches the kernel or raises. The provers and the
+verifiers (`stark.prover.prove`, `stark.machine.prove_machine` and
+`verify_machine`, `host.Prover`, `host.UniversalVerifier`) run on the card
+unless the caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"

@@ -38,8 +38,9 @@ class BatchCircuit(AggCircuit):
         version = Version.from_version_byte(witness.inner.version)
 
         # 1. verify aggregated chunk proofs (commitment checks; the STARK
-        #    verification of children happens host-side pre-aggregation; the
-        #    in-circuit deferral waits for recursion/, ROADMAP Queue 1)
+        #    verification of children happens in the prover, on the host or
+        #    in-circuit; the in-guest deferral waits for host/deferred.py,
+        #    ROADMAP Queue 1 items 5 and 9)
         proofs = cls.verify_proofs(witness)
 
         # 2. chunk PIs: chained and matching the child proofs' pi hashes

@@ -7,10 +7,10 @@ crates/prover/src/prover/mod.rs:68-433): the reference's
   (crates/integration/src/lib.rs:518-586 caching semantics).
 
 The proof runs on the card unless `ProverConfig.device` names another
-device; the self-verify is host code. Waiting, and raising
-`NotImplementedError` where reached: aggregated children verified
-in-circuit (`recursion/`, ROADMAP Queue 1 item 9) and `gen_proof_snark`
-(`snark/`, item 10).
+device; so do the preprocessed commitments of in-circuit child verifiers.
+The wire program and the self-verify's replay are host code. Waiting, and
+raising `NotImplementedError` where reached: `gen_proof_snark` (`snark/`,
+ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -21,12 +21,15 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
 
+from ..models.poseidon2_air import Poseidon2Air
+from ..recursion.aggregation import TAG_LEAF, ChildSlot, build_child_verification, input_commit
+from ..recursion.stark_verifier import RealOracle
 from ..stark import machine
 from ..stark.config import StarkConfig
 from . import serialization
-from .app import CircuitApp, get_app
+from .app import CircuitApp, app_for_vk, get_app
 from .deferral import encode_deferral
-from .proof_types import ProofEnum, StarkProof, StarkProofStat
+from .proof_types import AggChildRecord, ProofEnum, StarkProof, StarkProofStat
 from .task import ProvingTask
 from .verifier import UniversalVerifier
 
@@ -101,19 +104,46 @@ class Prover:
 
         if task.vk and task.vk != self.get_app_vk():
             raise ProverError(f"task vk mismatch for app {self.app.name}")
-        if task.aggregated_proofs and self.config.child_verification != "host":
-            raise NotImplementedError(
-                "ROADMAP Queue 1 item 9: aggregated children verified in-circuit "
-                "need recursion/; use child_verification='host'")
-
         instances, pi_hash, exec_ms = self.execute_and_check(task)
 
-        # child_verification == "host": the test-tier shortcut; children are
-        # verified by the host and the envelope carries no aggregation claim
-        for child in task.aggregated_proofs:
-            if not UniversalVerifier.verify_stark_proof_with_vk(
-                    child.baseline, child, self.config.stark):
-                raise ProverError("aggregated child proof failed host verification")
+        # Aggregated child proofs are verified IN-CIRCUIT: the machine
+        # gains wire-circuit instances that replay each child's transcript,
+        # OOD check, Merkle openings, FRI folds and PoW, and bind a digest
+        # over (child vk, child PVs) into this proof's public values. No
+        # host-side pre-verification: an invalid child makes this proof
+        # fail verification. Reference: in-guest verify_stark
+        # (crates/types/circuit/src/lib.rs:138-154).
+        agg_children: list = []
+        input_commits: list = []
+        if self.config.child_verification == "host":
+            # the test-tier shortcut: children verified by the host, no
+            # in-circuit claim in the envelope
+            for child in task.aggregated_proofs:
+                if not UniversalVerifier.verify_stark_proof_with_vk(
+                        child.baseline, child, self.config.stark, device=self.config.device):
+                    raise ProverError("aggregated child proof failed host verification")
+        elif task.aggregated_proofs:
+            if any(isinstance(i.air, Poseidon2Air) for i in instances):
+                raise ProverError("app machine already carries a Poseidon2 table")
+            slots, oracles = [], []
+            for child in task.aggregated_proofs:
+                child_app = app_for_vk(child.baseline)
+                if child_app is None:
+                    raise ProverError("unknown child app vk")
+                mp = serialization.decode_machine_proof(child.proof)
+                log_ns = [ln for (ln, _, _) in mp.meta]
+                # airs_for_meta, not airs(): VM-app children carry
+                # height-dependent preprocessed schedules (KeccakfAir), and
+                # the slot's vk/preprocessed roots must match the child
+                # proof's actual table heights.
+                slot = ChildSlot(child_app.airs_for_meta(mp.meta), log_ns,
+                                 self.config.stark, self.config.device)
+                slots.append(slot)
+                oracles.append(RealOracle(mp))
+                pvs = [v for (_, _, p) in mp.meta for v in p]
+                input_commits.append(input_commit(slot.vk_words, pvs))
+                agg_children.append(AggChildRecord(vk=child.baseline, log_ns=log_ns, pvs=pvs))
+            instances = list(instances) + build_child_verification(TAG_LEAF, slots, oracles)
 
         t0 = time.time()
         mproof = machine.prove_machine(instances, self.config.stark, device=self.config.device)
@@ -124,19 +154,20 @@ class Prover:
             user_pvs_proof=pi_hash,
             baseline=self.get_app_vk(),
             # deferral data: Merkle tree over input_commits (envelope parity
-            # with compute_deferral_data, crates/integration/src/lib.rs:461-514);
-            # empty until in-circuit aggregation is ported
-            deferral_merkle_proofs=encode_deferral([]),
+            # with compute_deferral_data, crates/integration/src/lib.rs:461-514)
+            deferral_merkle_proofs=encode_deferral(input_commits),
             stat=StarkProofStat(
                 total_cycles=sum(int(i.trace.shape[0]) for i in instances),
                 execution_time_mills=int(exec_ms),
                 proving_time_mills=int(proving_ms),
             ),
+            agg_children=agg_children,
+            input_commits=input_commits,
         )
 
         # self-verify before returning (prover/mod.rs:407-411)
         if not UniversalVerifier.verify_stark_proof_with_vk(
-                self.get_app_vk(), envelope, self.config.stark):
+                self.get_app_vk(), envelope, self.config.stark, device=self.config.device):
             raise ProverError("self-verification of generated proof failed")
 
         if path:

@@ -2,12 +2,16 @@
 crates/verifier/src/verifier.rs:17-141): the reference's
 `zkvm_prover_tpu/host/verifier.py` over the port's `verify_machine`.
 
-The vk guard, the PI-hash binding and the machine verification are here.
-Three paths wait, and raise `NotImplementedError` before any check so that
-none is reported as an invalid proof: an envelope with a deferral
-discharge proof or with in-circuit aggregated children (both need
-`recursion/`, ROADMAP Queue 1 item 9), and `verify_evm_proof` (the BN254
-SNARK wrapper, item 10).
+The vk guard, the PI-hash binding, the in-circuit aggregation claims
+(`agg_children`: the wire verifier rebuilt from the claimed children, its
+digest pinned) and the machine verification are here. The replay is host
+code; the preprocessed commitments it recomputes (vk material, which for a
+wire verifier has millions of rows) are made on `device`: the card unless
+the caller passes `device="cpu"`, as for the prover. Two paths wait, and
+raise `NotImplementedError` before any check so that neither is reported
+as an invalid proof: an envelope with a deferral discharge proof (`host/deferred.py` and step C's
+defer syscall, ROADMAP Queue 1 items 5 and 9) and `verify_evm_proof` (the
+BN254 SNARK wrapper, item 10).
 """
 
 from __future__ import annotations
@@ -16,20 +20,30 @@ import json
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
+
+from ..recursion.aggregation import (
+    TAG_LEAF,
+    ChildSlot,
+    child_verification_airs,
+    digest_bytes,
+    input_commit,
+    node_digest_words,
+)
 from ..stark import machine
 from ..stark.config import StarkConfig
 from . import serialization
 from .app import app_for_vk, get_app
+from .deferral import decode_and_verify
 from .proof_types import EvmProof, StarkProof
-
-_NO_RECURSION = ("ROADMAP Queue 1 item 9: verifying {} needs recursion/ "
-                 "(the in-circuit STARK verifier)")
 
 
 class UniversalVerifier:
-    def __init__(self, app_name: str, stark: Optional[StarkConfig] = None):
+    def __init__(self, app_name: str, stark: Optional[StarkConfig] = None,
+                 device=None):
         self.app = get_app(app_name)
         self.stark = stark or StarkConfig()
+        self.device = device
 
     @classmethod
     def setup(cls, assets_dir: str) -> "UniversalVerifier":
@@ -43,17 +57,17 @@ class UniversalVerifier:
 
     def verify_stark_proof(self, proof: StarkProof) -> bool:
         return self.verify_stark_proof_with_vk(
-            self.app.vk_bytes(), proof, self.stark, app=self.app)
+            self.app.vk_bytes(), proof, self.stark, app=self.app, device=self.device)
 
     @staticmethod
     def verify_stark_proof_with_vk(
         vk: bytes, proof: StarkProof, stark: Optional[StarkConfig] = None,
-        app=None,
+        app=None, device=None,
     ) -> bool:
         if proof.deferral_discharge:
-            raise NotImplementedError(_NO_RECURSION.format("a deferral discharge proof"))
-        if proof.agg_children:
-            raise NotImplementedError(_NO_RECURSION.format("aggregated children"))
+            raise NotImplementedError(
+                "ROADMAP Queue 1 items 5 and 9: verifying a deferral discharge proof "
+                "needs host/deferred.py and step C's defer syscall")
         # commitment guard (verifier.rs:77-80): baseline must carry the
         # expected app vk
         if proof.baseline != vk:
@@ -67,18 +81,53 @@ class UniversalVerifier:
         # assertion/index error escaping to the caller (the reference
         # verifier returns Result the same way, verifier.rs:60-92).
         try:
-            return UniversalVerifier._verify_decoded(proof, stark or StarkConfig(), app)
+            return UniversalVerifier._verify_decoded(proof, stark or StarkConfig(), app, device)
         except Exception:
             return False
 
     @staticmethod
-    def _verify_decoded(proof: StarkProof, stark: StarkConfig, app) -> bool:
+    def _verify_decoded(proof: StarkProof, stark: StarkConfig, app, device) -> bool:
         mproof = serialization.decode_machine_proof(proof.proof)
         airs = app.airs_for_meta(mproof.meta)
+        n_app = len(airs)
         # bind the revealed PI hash to the public values inside the proof
-        if app.pi_hash_from_meta(mproof.meta[:len(airs)]) != proof.user_pvs_proof:
+        if app.pi_hash_from_meta(mproof.meta[:n_app]) != proof.user_pvs_proof:
             return False
-        return machine.verify_machine(airs, mproof, stark)
+
+        # verifier-in-circuit aggregation: rebuild the wire verification
+        # program from the claimed children (registered app circuits at the
+        # claimed heights) and pin the digest over (child vk, child PVs).
+        # Everything in agg_children is an untrusted hint: a mismatch in
+        # app, heights, or PVs fails either the digest pin or the machine
+        # verification against the rebuilt preprocessed program.
+        if proof.agg_children:
+            slots, children, commits = [], [], []
+            for rec in proof.agg_children:
+                child_app = app_for_vk(rec.vk)
+                if child_app is None:
+                    return False
+                # rebuild the child's AIR list at its claimed heights
+                # (VM apps have height-dependent preprocessed schedules)
+                meta_like = [(int(ln), None, []) for ln in rec.log_ns]
+                slot = ChildSlot(child_app.airs_for_meta(meta_like), rec.log_ns, stark, device)
+                slots.append(slot)
+                children.append((slot.vk_words, rec.pvs))
+                commits.append(input_commit(slot.vk_words, rec.pvs))
+            # input_commits + deferral Merkle data must match the children
+            if proof.input_commits != commits:
+                return False
+            if not decode_and_verify(proof.deferral_merkle_proofs, commits):
+                return False
+            airs = airs + child_verification_airs(TAG_LEAF, slots)
+            if len(mproof.meta) != len(airs):
+                return False
+            # PublicBindAir is the third wire AIR (n_app + 2)
+            (_, _, digest_pvs) = mproof.meta[n_app + 2]
+            expected = digest_bytes(node_digest_words(TAG_LEAF, children))
+            if digest_bytes(np.array(digest_pvs, dtype=np.uint32)) != expected:
+                return False
+
+        return machine.verify_machine(airs, mproof, stark, device=device)
 
     def verify_evm_proof(self, proof: EvmProof) -> bool:
         raise NotImplementedError(

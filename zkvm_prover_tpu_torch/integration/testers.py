@@ -55,7 +55,8 @@ def output_dir() -> Path:
 def prove_verify(prover: Prover, task: ProvingTask, stark: StarkConfig):
     """gen_proof + independent verification (lib.rs:518-586 analog)."""
     proof = prover.gen_proof_universal(task)
-    if not UniversalVerifier.verify_stark_proof_with_vk(prover.get_app_vk(), proof, stark):
+    if not UniversalVerifier.verify_stark_proof_with_vk(prover.get_app_vk(), proof, stark,
+                                                        device=prover.config.device):
         raise AssertionError("independent verification failed")
     return proof
 
@@ -160,8 +161,8 @@ class BatchTaskGenerator:
             app_name="batch",
             cache_dir=str(output_dir() / "batch" / "proofs"),
             stark=self.chunks.stark,
-            # the test tier's host-verified children (in-circuit
-            # verification waits for recursion/, ROADMAP Queue 1)
+            # the test tier's host-verified children, as the reference's
+            # generator has them (the entry point's default is in-circuit)
             child_verification="host",
             device=self.chunks.device,
         ))

@@ -11,8 +11,9 @@ several Merkle levels per launch (`compress_levels`); a CPU tensor takes the
 plain torch version. Width 24 is off the proving path and has no kernel yet:
 it runs on CPU tensors only.
 
-The host side (challenger, verifier) uses the numpy permutation
-(`permute_np`).
+The host side (challenger, verifier, the wire circuit builder) permutes
+with `permute_np`: the reference's native C++ permutation (`p2_native.py`),
+whose numpy version `permute_np_plain` stays as its plain version.
 
 Round constants come from SHA-256 counter-mode expansion, exactly as the
 reference derives them; `load_constants` installs other tables (canonical
@@ -29,6 +30,7 @@ import torch
 
 from .. import _build
 from ..fields import babybear as bb
+from . import p2_native
 
 SBOX_DEGREE = 7
 ROUNDS_F = 8  # external rounds (4 initial + 4 final)
@@ -423,9 +425,15 @@ def _permute_np_numpy(state: np.ndarray) -> np.ndarray:
     return x.astype(np.uint32)
 
 
-def permute_np(state: np.ndarray) -> np.ndarray:
-    """Poseidon2 on (..., width) uint32 Montgomery numpy arrays."""
+def permute_np_plain(state: np.ndarray) -> np.ndarray:
+    """Poseidon2 on (..., width) uint32 Montgomery numpy arrays, in numpy."""
     return _permute_np_numpy(np.asarray(state, dtype=np.uint32))
+
+
+def permute_np(state: np.ndarray) -> np.ndarray:
+    """Poseidon2 on (..., width) uint32 Montgomery numpy arrays, in C++ on
+    the host (`p2_native`): the same values as `permute_np_plain`."""
+    return p2_native.permute(state, _get_constants(state.shape[-1]))
 
 
 def hash_rows_np(matrix: np.ndarray) -> np.ndarray:

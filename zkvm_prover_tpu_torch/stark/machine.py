@@ -23,7 +23,8 @@ out-of-domain openings (both points of a matrix from one read) and the DEEP
 column sums (one call per matrix). The interaction columns, the constraint
 pass with its alpha fold, the logUp constraints and the FRI fold with its
 injections are plain torch on the same device. `prove_machine` runs on the
-card unless given `device="cpu"`; `verify_machine` is host code.
+card unless given `device="cpu"`; `verify_machine` replays on the host and
+recomputes the preprocessed commitments on the same default device.
 """
 
 from __future__ import annotations
@@ -473,13 +474,37 @@ def _structure(air: Air):
     return len(tb.interactions), pre_np
 
 
+def preprocessed_roots(pre_traces, log_ms: Sequence[int], config: StarkConfig,
+                       device) -> Dict[int, np.ndarray]:
+    """The preprocessed commitments per LDE height (Montgomery roots), as
+    `prove_machine` makes them: verification-key material, a function of
+    the AIRs' fixed columns (canonical numpy arrays, None where an AIR has
+    none) alone. The LDEs and trees run on `device`."""
+    dev = resolve_device(device)
+    log_max = max(log_ms)
+    g = config.coset_shift % P
+    pre_ldes = [None if pre is None else
+                _lde(bb.as_tensor(pre, dev), _shift_for(lm, log_max, g), config.log_blowup,
+                     canonical=True)[1]
+                for pre, lm in zip(pre_traces, log_ms)]
+    roots = {}
+    for lm in sorted(set(log_ms), reverse=True):
+        mats = [x for x, l in zip(pre_ldes, log_ms) if l == lm and x is not None]
+        if mats:
+            roots[lm] = merkle.commit(mats).root_np()
+    return roots
+
+
 def verify_machine(
     airs: Sequence[Air],
     proof,
     config: Optional[StarkConfig] = None,
+    device=None,
 ) -> bool:
-    """Check a machine proof for `airs` (host code). A proof that is not
-    well formed (`stark/wellformed.py`) returns False before the replay."""
+    """Check a machine proof for `airs`. A proof that is not well formed
+    (`stark/wellformed.py`) returns False before the replay. The replay is
+    host code; the preprocessed commitments are recomputed on `device`
+    (None: the card, as for `prove_machine`)."""
     config = config or StarkConfig()
     log_blowup = config.log_blowup
     g = config.coset_shift % P
@@ -498,19 +523,10 @@ def verify_machine(
     shifts = [_shift_for(lm, log_max, g) for lm in log_ms]
 
     # ---- recompute preprocessed commitments (verification-key material) ---
-    pre_ldes: List[Optional[torch.Tensor]] = [None] * n_airs
     for i, pre_np in enumerate(pre_traces):
-        if pre_np is None:
-            continue
-        if pre_np.shape[0] != 1 << metas[i][0]:
+        if pre_np is not None and pre_np.shape[0] != 1 << metas[i][0]:
             return False
-        pre_ldes[i] = _lde(bb.as_tensor(pre_np, "cpu"), shifts[i], log_blowup,
-                           canonical=True)[1]
-    expected_pre_roots = {}
-    for lm in heights:
-        mats = [x for x, l in zip(pre_ldes, log_ms) if l == lm and x is not None]
-        if mats:
-            expected_pre_roots[lm] = merkle.commit(mats).root_np()
+    expected_pre_roots = preprocessed_roots(pre_traces, log_ms, config, device)
     for lm, root in expected_pre_roots.items():
         if not (np.asarray(proof.pre_roots[lm]) == root).all():
             return False
