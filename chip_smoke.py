@@ -81,7 +81,18 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      through `UniversalVerifier` (True) and with a flipped `user_pvs_proof`
      byte (False); a batch task whose KZG proof is tampered raises in
      execute with no launch; a second bundle call answered from the cache;
-  9. the seconds of each phase, the kernels line (JSON), the card line,
+  9. the ext guest: one secp256k1 ECDSA verification from --seed (w = 1/s
+     by modop DIV, u1 and u2 by modop MUL mod n, about 510 ec_double and
+     256 ec_add, x(R) revealed), keccak of the 64-byte Q, sha256 of 150
+     bytes, fp2 MUL / ADD / SUB over BN254 Fq and two defer calls: every
+     extension syscall family. x(R) mod n == r, the digests in RAM and
+     DeferralVmAir's public values (the chain digest of the leaves) are
+     checked on the host; the AIRs' heights and widths and the cells are
+     printed; then, as in phase 6, every kernel shape of the proof checked
+     against its plain version, the proof at default_config() (launch
+     counts zeroed just before, every C call at a checked shape), verify
+     (True) and a tampered public value (False);
+ 10. the seconds of each phase, the kernels line (JSON), the card line,
      and last the result line.
 The port imports no JAX; this script imports nothing of the JAX package.
 """
@@ -903,12 +914,11 @@ def tampered_public_value(airs, proof):
     return bad
 
 
-def rv32_cell(seed: int) -> dict:
-    """Phase 6: the rv32 machine path. The executor built, the benchmark
-    guest run and traced; every kernel shape of its proof checked against
-    its plain version; then the proof at default_config() with the launch
-    counts zeroed just before (cold), verify (True) and a tampered public
-    value (False). The kernel census runs on phase 5's small guest."""
+def checked_machine_proof(tag: str, air_traces, seed: int) -> dict:
+    """Every kernel shape of the machine's proof checked against its plain
+    version; then the proof at default_config() with the launch counts
+    zeroed just before (cold), every C call at a checked shape and every
+    counter nonzero; verify (True) and a tampered public value (False)."""
     import torch
 
     from zkvm_prover_tpu_torch.ops import ntt_fused
@@ -916,20 +926,16 @@ def rv32_cell(seed: int) -> dict:
     from zkvm_prover_tpu_torch.stark.config import default_config
 
     cfg = default_config()
-    air_traces, info = rv32_air_traces(*RV32_GUEST)
     airs = [a for a, _, _ in air_traces]
     insts = [machine.AirInstance(a, t, p) for a, t, p in air_traces]
-    cells = sum(int(t.size) for _, t, _ in air_traces)
-    print(f"[6] rv32 guest {RV32_GUEST}: {info['guest_cycles']} cycles, executor built in "
-          f"{info['executor_build_s']:.2f} s, traces in {info['tracegen_s']:.2f} s: "
-          f"{len(airs)} AIRs, {cells} cells", flush=True)
-    for a, t, p in air_traces:
-        print(f"      {type(a).__name__:20s} {str(t.shape):14s} pvs {len(p)}")
     shapes = rv32_shapes(air_traces)
+    t0 = time.perf_counter()
     with log_calls() as checked:
         rows = check_rv32_shapes(shapes, seed)
-    print(f"[6] {len(rows)} rv32 kernel shapes exact against their plain versions "
-          f"({len(set(call_key(e, a) for e, a in checked))} distinct C calls)", flush=True)
+    check_s = time.perf_counter() - t0
+    n_checked = len(set(call_key(e, a) for e, a in checked))
+    print(f"[{tag}] {len(rows)} kernel shapes exact against their plain versions "
+          f"({n_checked} distinct C calls) in {check_s:.1f} s", flush=True)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -944,40 +950,119 @@ def rv32_cell(seed: int) -> dict:
     unchecked = sorted(set(call_key(e, a) for e, a in used)
                        - set(call_key(e, a) for e, a in checked))
     if unchecked:
-        raise AssertionError(f"rv32 proof launched unchecked kernel shapes: {unchecked}")
+        raise AssertionError(f"the proof launched unchecked kernel shapes: {unchecked}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the rv32 path: {missing}")
+        raise AssertionError(f"kernels not launched on the [{tag}] path: {missing}")
     phases = {k: v for k, v in proof.stat.items() if k.endswith("_ms")}
     n_obs = observed_values(proof)
-    print(f"[6] proof_wall_s {prove_s:.3f}, proving_khz {info['guest_cycles'] / 1e3 / prove_s:.3f}, "
-          f"peak {peak} bytes ({peak / 2**30:.3f} GiB)", flush=True)
+    print(f"[{tag}] proof_wall_s {prove_s:.3f}, peak {peak} bytes ({peak / 2**30:.3f} GiB)",
+          flush=True)
     for key, val in phases.items():
         print(f"      {key:24s} {val:10.1f} ms, running peak "
               f"{proof.stat[key[:-3] + '_peak_bytes']} bytes")
-    print(f"[6] ood observed {n_obs} values ({-(-n_obs // 8)} duplexes)")
-    print(f"[6] launches: {counts}; K1 transforms {dict(ntt_fused.transforms)}", flush=True)
+    print(f"[{tag}] ood observed {n_obs} values ({-(-n_obs // 8)} duplexes)")
+    print(f"[{tag}] launches: {counts}; K1 transforms {dict(ntt_fused.transforms)}", flush=True)
     t0 = time.perf_counter()
     ok = machine.verify_machine(airs, proof, cfg)
     verify_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tampered = machine.verify_machine(airs, tampered_public_value(airs, proof), cfg)
     tampered_s = time.perf_counter() - t0
-    print(f"[6] verify_wall_s {verify_s:.3f}: {ok}; tampered public value: {tampered} "
+    print(f"[{tag}] verify_wall_s {verify_s:.3f}: {ok}; tampered public value: {tampered} "
           f"in {tampered_s:.3f} s", flush=True)
     if not ok or tampered:
-        raise AssertionError("rv32 verification phase failed")
+        raise AssertionError(f"[{tag}] verification phase failed")
     del proof
+    torch.cuda.empty_cache()
+    return {"proof_wall_s": prove_s, "verify_wall_s": verify_s, "shape_checks": rows,
+            "shape_check_s": check_s, "checked_calls": n_checked, "peak_bytes": peak,
+            "phases_ms": phases, "ood_observed_values": n_obs, "launches": counts,
+            "tampered_public_value": tampered, "tampered_verify_s": tampered_s}
+
+
+def print_airs(air_traces) -> int:
+    """Each AIR's height, width and public values; returns the cells."""
+    for a, t, p in air_traces:
+        print(f"      {type(a).__name__:20s} {str(t.shape):14s} pvs {len(p)}")
+    return sum(int(t.size) for _, t, _ in air_traces)
+
+
+def rv32_cell(seed: int) -> dict:
+    """Phase 6: the rv32 machine path. The executor built, the benchmark
+    guest run and traced; every kernel shape of its proof checked against
+    its plain version; then the proof at default_config() with the launch
+    counts zeroed just before (cold), verify (True) and a tampered public
+    value (False). The kernel census runs on phase 5's small guest."""
+    air_traces, info = rv32_air_traces(*RV32_GUEST)
+    print(f"[6] rv32 guest {RV32_GUEST}: {info['guest_cycles']} cycles, executor built in "
+          f"{info['executor_build_s']:.2f} s, traces in {info['tracegen_s']:.2f} s: "
+          f"{len(air_traces)} AIRs", flush=True)
+    cells = print_airs(air_traces)
+    print(f"[6] {cells} cells", flush=True)
+    out = checked_machine_proof("6", air_traces, seed)
+    prove_s = out["proof_wall_s"]
     bench_names = {"guest_cycles": info["guest_cycles"], "tracegen_s": info["tracegen_s"],
-                   "proof_wall_s": prove_s, "verify_wall_s": verify_s,
+                   "proof_wall_s": prove_s, "verify_wall_s": out["verify_wall_s"],
                    "proving_khz": info["guest_cycles"] / 1e3 / prove_s}
     print(f"[6] {json.dumps(bench_names)}", flush=True)
-    torch.cuda.empty_cache()
-    return {**info, **bench_names,
+    return {**info, **out, **bench_names,
             "airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces],
-            "trace_cells": cells, "shape_checks": rows, "peak_bytes": peak, "phases_ms": phases, "ood_observed_values": n_obs,
-            "launches": counts, "tampered_public_value": tampered,
-            "tampered_verify_s": tampered_s}
+            "trace_cells": cells}
+
+
+def ecdsa_cell(seed: int) -> dict:
+    """Phase 9: the ext guest, one secp256k1 ECDSA verification (key,
+    digest and nonce from `seed`; modop DIV and MUL mod n, about 510
+    ec_double and 256 ec_add) and then keccak of Q, sha256 of 150 bytes,
+    fp2 MUL / ADD / SUB over BN254 Fq and two defer calls: every extension
+    syscall family. Executed and traced; x(R) mod n == r, the keccak and
+    sha256 digests in RAM and DeferralVmAir's public values against the
+    host; then the checked proof at default_config()."""
+    import hashlib
+
+    from zkvm_prover_tpu_torch.models import rv32_v2
+    from zkvm_prover_tpu_torch.models.deferral_vm import DeferralVmAir, chain_digest_from_leaves
+    from zkvm_prover_tpu_torch.ops.keccak import keccak256
+    from zkvm_prover_tpu_torch.vm import executor, guests
+
+    executor.build_native()
+    words, info = guests.ecdsa_verify_program(seed)
+    ex = executor.Rv32Executor()
+    ex.load_program(words)
+    if ex.run(1 << 20) != executor.HALTED or ex.exit_code != 0:
+        raise AssertionError(f"the ECDSA guest did not halt cleanly (exit code {ex.exit_code})")
+    t0 = time.perf_counter()
+    air_traces = rv32_v2.generate_traces(words, ex.records(), data_base=guests.ECDSA_BASE)
+    tracegen_s = time.perf_counter() - t0
+    x_r = sum(w << (32 * i) for i, w in enumerate(ex.public_values()))
+    a = info["addr"]
+
+    def ram(addr, n_words):
+        return b"".join(ex.load_mem32(addr + 4 * i).to_bytes(4, "little") for i in range(n_words))
+
+    q_bytes = b"".join(v.to_bytes(32, "little") for v in info["Q"])
+    defer_pvs = next(p for air, _, p in air_traces if isinstance(air, DeferralVmAir))
+    checks = {
+        "x(R) mod n == r": x_r % guests.SECP256K1_N == info["r"],
+        "keccak(Q) in RAM": ram(a["keccak"], 8) == keccak256(q_bytes),
+        "sha256(msg) in RAM": ram(a["sha"], 8) == hashlib.sha256(info["msg"]).digest(),
+        "deferral digest": ([int(v) for v in defer_pvs]
+                            == [int(v) for v in chain_digest_from_leaves(info["leaves"])]),
+    }
+    print(f"[9] ECDSA guest (seed {seed}): {ex.cycles} cycles, {len(words)} words, "
+          f"{info['ec_doubles']} ec_double, {info['ec_adds']} ec_add; traces in "
+          f"{tracegen_s:.2f} s: {len(air_traces)} AIRs", flush=True)
+    cells = print_airs(air_traces)
+    print(f"[9] {cells} cells; {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"the ECDSA guest's results are wrong: {checks}")
+    out = checked_machine_proof("9", air_traces, seed)
+    names = {"guest_cycles": ex.cycles, "tracegen_s": tracegen_s,
+             "proof_wall_s": out["proof_wall_s"], "verify_wall_s": out["verify_wall_s"]}
+    print(f"[9] {json.dumps(names)}", flush=True)
+    return {**out, **names, "checks": checks, "trace_cells": cells,
+            "airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces]}
 
 
 def small_rv32_cuda_equals_cpu():
@@ -1642,9 +1727,13 @@ def main() -> int:
     report["chain"] = chain_cell(chunks, chunk_checked, args.seed + 5)
     phase_done(8)
 
-    # 9. the kernels line: per kernel, its largest main-path shape; launches
-    # summed over the six paths (single-AIR proof, machine cell, rv32, chunk,
-    # batch, bundle)
+    # 9. the ext guest: ECDSA verify and every other extension syscall
+    report["ecdsa"] = ecdsa_cell(args.seed + 6)
+    phase_done(9)
+
+    # 10. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the seven paths (single-AIR proof, machine cell, rv32,
+    # chunk, batch, bundle, ext guest)
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -1659,7 +1748,8 @@ def main() -> int:
                    "rv32": report["rv32"]["launches"][row["counter"]],
                    "chunk": report["chunk"]["launches"][row["counter"]],
                    "batch": report["chain"]["batch"]["launches"][row["counter"]],
-                   "bundle": report["chain"]["bundle"]["launches"][row["counter"]]}
+                   "bundle": report["chain"]["bundle"]["launches"][row["counter"]],
+                   "ecdsa": report["ecdsa"]["launches"][row["counter"]]}
         entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -1667,7 +1757,7 @@ def main() -> int:
                      shape=row["shape"], bytes=row["bytes"])
         line.append(entry)
     report["total_s"] = time.perf_counter() - t_all
-    print(f"[9] seconds by phase: "
+    print(f"[10] seconds by phase: "
           + ", ".join(f"{n}: {t:.1f}" for n, t in report["phase_s"].items())
           + f"; total {report['total_s']:.1f} s", flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

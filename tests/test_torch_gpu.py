@@ -475,6 +475,26 @@ def test_small_rv32_proof_cuda_equals_cpu(cuda):
     assert machine.verify_machine([x for x, _, _ in air_traces], a, fast_test_config())
 
 
+def test_ext_guest_proof_cuda_equals_cpu(cuda):
+    """The ECDSA-verify guest at 16-bit scalars: every extension syscall
+    family (modop, ec_add, ec_double, keccak, sha256, fp2, defer), 29 AIRs."""
+    from zkvm_prover_tpu_torch.models import rv32_v2
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+    from zkvm_prover_tpu_torch.vm import executor, guests
+
+    prog, _ = guests.ecdsa_verify_program(seed=3, scalar_bits=16)
+    ex = executor.Rv32Executor()
+    ex.load_program(prog)
+    assert ex.run(1 << 18) == executor.HALTED and ex.exit_code == 0
+    air_traces = rv32_v2.generate_traces(prog, ex.records(), data_base=guests.ECDSA_BASE)
+    insts = [machine.AirInstance(a, t, p) for a, t, p in air_traces]
+    a = machine.prove_machine(insts, fast_test_config(), device=cuda)
+    b = machine.prove_machine(insts, fast_test_config(), device="cpu")
+    _proofs_equal(a, b)
+    assert machine.verify_machine([x for x, _, _ in air_traces], a, fast_test_config())
+
+
 # ---------------------------------------------------------------------------
 # the host entry point (zkvm_prover_tpu_torch/host)
 # ---------------------------------------------------------------------------

@@ -472,6 +472,11 @@ import zkvm_prover_tpu_torch.host, zkvm_prover_tpu_torch.integration
 import zkvm_prover_tpu_torch.types.chunk, zkvm_prover_tpu_torch.circuits
 import zkvm_prover_tpu_torch.recursion, zkvm_prover_tpu_torch.recursion.aggregation
 import zkvm_prover_tpu_torch.stark.debug
+import zkvm_prover_tpu_torch.models.bigint_air, zkvm_prover_tpu_torch.models.ec_air
+import zkvm_prover_tpu_torch.models.ec_double, zkvm_prover_tpu_torch.models.vm_ext
+import zkvm_prover_tpu_torch.models.fp2_vm, zkvm_prover_tpu_torch.models.sha256_air
+import zkvm_prover_tpu_torch.models.sha256_vm, zkvm_prover_tpu_torch.models.deferral_vm
+import zkvm_prover_tpu_torch.vm.guests
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "cryptography", "zkvm_prover_tpu")]
 print("clean")
 """

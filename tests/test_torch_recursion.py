@@ -504,7 +504,7 @@ def test_leaf_rejects_tampered_child(leaf):
 def test_parallel_leaf_proving_raises(leaf):
     prover = agg.RecursiveAggregationProver(
         leaf["slot"], TINY, agg.AggregationTreeConfig(num_children_leaf=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         prover.aggregate(leaf["kids"], workers=2)
 
 

@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 
 import test_rv32_v2 as ref_rv32_tests
-import test_vm_ext_syscalls as ref_ext_tests
 from zkvm_prover_tpu.models import rv32_v2 as ref_rv32_v2
 from zkvm_prover_tpu.models import symbolic as ref_symbolic
 from zkvm_prover_tpu.stark import machine as ref_machine
@@ -227,36 +226,6 @@ def test_tampered_small_proof_rejected_by_both(small_proofs, what):
     assert machine.verify_machine(bad_airs, bad, fast_test_config(), device="cpu") is False
     bad_ref_airs, bad_ref = _tampered(ref_airs, ref_proof, what, ref_rv32_v2.ProgramAirV2)
     assert not ref_machine.verify_machine(bad_ref_airs, bad_ref, ref_fast_config())
-
-
-# ---------------------------------------------------------------------------
-# extension syscalls whose chips are not ported
-# ---------------------------------------------------------------------------
-
-B = DATA_BASE
-UNPORTED = {
-    "sha256_short": lambda: ref_ext_tests._sha_guest(b"sha256 on tpu!"),
-    "modop": lambda: asm.assemble(asm.modop(B + 0x100, B, B + 0x40, asm.MODOP_ADD, 0)
-                                  + asm.halt(0)),
-    "ec_add": lambda: asm.assemble([*asm.li("t0", 1), *asm.li("t1", B), asm.sw("t0", "t1", 0)]
-                                   + asm.ec_add(B + 0x200, B, B + 0x80, 0) + asm.halt(0)),
-    "ec_double": lambda: asm.assemble([*asm.li("t0", 1), *asm.li("t1", B + 32),
-                                       asm.sw("t0", "t1", 0)]
-                                      + asm.ec_double(B + 0x200, B, 0) + asm.halt(0)),
-    "defer": lambda: asm.assemble(asm.defer_verify(B) + asm.halt(0)),
-    "fp2": lambda: asm.assemble(asm.fp2op(B + 0x100, B, B + 0x80, asm.FP2_ADD, 0)
-                                + asm.halt(0)),
-}
-
-
-@pytest.mark.parametrize("name", list(UNPORTED))
-def test_unported_syscall_raises(name):
-    words = UNPORTED[name]()
-    ex = executor.Rv32Executor()
-    ex.load_program(words)
-    assert ex.run(1 << 15) == executor.HALTED
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step C"):
-        rv32_v2.generate_traces(words, ex.records(), data_base=B)
 
 
 def test_executor_builds_into_the_ports_build_dir():

@@ -40,7 +40,7 @@ class BatchCircuit(AggCircuit):
         # 1. verify aggregated chunk proofs (commitment checks; the STARK
         #    verification of children happens in the prover, on the host or
         #    in-circuit; the in-guest deferral waits for host/deferred.py,
-        #    ROADMAP Queue 1 items 5 and 9)
+        #    ROADMAP Queue 1 item 2)
         proofs = cls.verify_proofs(witness)
 
         # 2. chunk PIs: chained and matching the child proofs' pi hashes

@@ -5,7 +5,7 @@ deserialize witness -> execute/fold -> (ChunkInfo, Version) -> pi hash.
 The reference's `zkvm_prover_tpu/circuits/chunk_circuit.py` on the summary
 path. A witness that carries block witnesses (stateless re-execution)
 raises `NotImplementedError` until `execution/` is ported (ROADMAP Queue 1
-item 6)."""
+item 4b)."""
 
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from ..types.chunk.witness import (
 from ..types.base.fork_name import ForkName
 from .circuit import Circuit
 
-_NO_EXECUTION = ("ROADMAP Queue 1 item 6: witnesses with block witnesses need "
+_NO_EXECUTION = ("ROADMAP Queue 1 item 4b: witnesses with block witnesses need "
                  "execution/ (stateless re-execution)")
 
 

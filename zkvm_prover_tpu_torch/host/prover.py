@@ -10,7 +10,7 @@ The proof runs on the card unless `ProverConfig.device` names another
 device; so do the preprocessed commitments of in-circuit child verifiers.
 The wire program and the self-verify's replay are host code. Waiting, and
 raising `NotImplementedError` where reached: `gen_proof_snark` (`snark/`,
-ROADMAP Queue 1 item 10).
+ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -177,5 +177,5 @@ class Prover:
 
     def gen_proof_snark(self, task: ProvingTask):
         raise NotImplementedError(
-            "ROADMAP Queue 1 item 10: gen_proof_snark needs snark/ "
+            "ROADMAP Queue 1 item 6: gen_proof_snark needs snark/ "
             "(the BN254 PLONK wrapper)")

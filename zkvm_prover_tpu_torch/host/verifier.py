@@ -9,9 +9,8 @@ code; the preprocessed commitments it recomputes (vk material, which for a
 wire verifier has millions of rows) are made on `device`: the card unless
 the caller passes `device="cpu"`, as for the prover. Two paths wait, and
 raise `NotImplementedError` before any check so that neither is reported
-as an invalid proof: an envelope with a deferral discharge proof (`host/deferred.py` and step C's
-defer syscall, ROADMAP Queue 1 items 5 and 9) and `verify_evm_proof` (the
-BN254 SNARK wrapper, item 10).
+as an invalid proof: an envelope with a deferral discharge proof (`host/deferred.py`, ROADMAP
+Queue 1 item 2) and `verify_evm_proof` (the BN254 SNARK wrapper, item 6).
 """
 
 from __future__ import annotations
@@ -66,8 +65,8 @@ class UniversalVerifier:
     ) -> bool:
         if proof.deferral_discharge:
             raise NotImplementedError(
-                "ROADMAP Queue 1 items 5 and 9: verifying a deferral discharge proof "
-                "needs host/deferred.py and step C's defer syscall")
+                "ROADMAP Queue 1 item 2: verifying a deferral discharge proof "
+                "needs host/deferred.py")
         # commitment guard (verifier.rs:77-80): baseline must carry the
         # expected app vk
         if proof.baseline != vk:
@@ -131,7 +130,7 @@ class UniversalVerifier:
 
     def verify_evm_proof(self, proof: EvmProof) -> bool:
         raise NotImplementedError(
-            "ROADMAP Queue 1 item 10: verifying an EvmProof needs snark/ "
+            "ROADMAP Queue 1 item 6: verifying an EvmProof needs snark/ "
             "(the BN254 PLONK wrapper)")
 
     def dump_vk(self, assets_dir: str) -> None:

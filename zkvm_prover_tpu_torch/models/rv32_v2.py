@@ -37,10 +37,7 @@ PublicValuesAir via PV_BUS (per-word reveal flags, partial reveals
 sound); the extension syscalls hand off over dedicated request buses to
 their chips (keccak_vm / sha256_vm / vm_ext / ec_double / fp2_vm /
 deferral_vm — the openvm VM-extension analogs), which own the rest of
-the instruction's timestamp window and send the continuation. In the
-port only the keccak chips (a7 = 3) are ported; a program that makes one
-of the other extension syscalls raises NotImplementedError in
-`generate_traces` (ROADMAP Queue 1 step C).
+the instruction's timestamp window and send the continuation.
 
 v2 limitations (ROADMAP Phase 4): rd != x0 for writes; RAM initially zero
 at touched addresses above the program image; keccak buffers word-aligned
@@ -2021,15 +2018,13 @@ for _name, _air, _set, _ in _CHIPS:
         CHIP_OF_KIND[_k] = _name
 
 
-# extension syscalls whose chips are not ported (ROADMAP Queue 1 step C)
-_UNPORTED_SYSCALLS = {
-    4: "modop (vm_ext ModularVmAir, bigint_air BigIntModMulAir)",
-    5: "ec_add (vm_ext EcVmAir, ec_air EcAddAir)",
-    6: "sha256 (sha256_vm Sha256VmAir, sha256_air Sha256Air)",
-    7: "ec_double (vm_ext EcDoubleVmAir, ec_double EcDoubleAir)",
-    8: "defer (deferral_vm DeferralVmAir)",
-    9: "fp2 (fp2_vm Fp2VmAir)",
-}
+def _stack_rows(rows, width: int) -> np.ndarray:
+    """A chip's rows stacked into a trace of max(4, next power of two) rows,
+    zero-padded."""
+    tr = np.zeros((max(4, 1 << (len(rows) - 1).bit_length()), width), dtype=np.uint32)
+    if rows:
+        tr[:len(rows)] = rows
+    return tr
 
 
 def generate_traces(program_words: List[int], records: np.ndarray,
@@ -2037,11 +2032,23 @@ def generate_traces(program_words: List[int], records: np.ndarray,
     """Build all chip traces for a v2 execution from the executor's records.
     Returns (Air, trace, public_values) triples. (The reference's version
     also takes a continuation segment's boundary state; the port has no
-    continuations yet.)"""
+    continuations yet: ROADMAP Queue 1 item 3.)"""
     st = _TraceState(data_base)
     rows: Dict[str, list] = {name: [] for name, *_ in _CHIPS}
     keccak_rows: list = []
     keccak_states: list = []
+    mod_rows: list = []
+    ec_rows: list = []
+    dbl_rows: list = []
+    bigint_ops: list = []   # (a, b, c, m) requests BigIntModMulAir serves
+    ec_adds: list = []      # ((x1,y1), (x2,y2), m) requests EcAddAir serves
+    ec_doubles: list = []   # ((x1,y1), m) requests EcDoubleAir serves
+    sha_rows: list = []
+    sha_blocks: list = []   # (h_in, block_words) Sha256Air compressions
+    fp2_rows: list = []
+    defer_rows: list = []
+    defer_p2_inputs: list = []  # (16,) canonical Poseidon2Air requests
+    defer_acc = np.zeros(8, dtype=np.uint32)  # running deferral digest
 
     ts_counter = 1  # running timestamp (ext-chip rows consume wide windows)
     for i in range(len(records)):
@@ -2068,10 +2075,51 @@ def generate_traces(program_words: List[int], records: np.ndarray,
                 keccak_rows += krows
                 keccak_states += kstates
                 ts_counter += KECCAK_BLOCK_TS * len(krows)
-            elif ext is not None:
-                raise NotImplementedError(
-                    f"the {_UNPORTED_SYSCALLS[ext[0]]} chips (syscall a7 = "
-                    f"{ext[0]}) are not ported yet: ROADMAP Queue 1 step C")
+            elif ext is not None and ext[0] == 4:
+                from .vm_ext import MOD_TS_WINDOW, fill_modop_row
+
+                mrow, bops = fill_modop_row(st, pc, ts, *ext[1])
+                mod_rows.append(mrow)
+                bigint_ops.extend(bops)
+                ts_counter += MOD_TS_WINDOW
+            elif ext is not None and ext[0] == 5:
+                from .vm_ext import EC_TS_WINDOW, fill_ec_row
+
+                erow, eadd = fill_ec_row(st, pc, ts, *ext[1])
+                ec_rows.append(erow)
+                ec_adds.append(eadd)
+                ts_counter += EC_TS_WINDOW
+            elif ext is not None and ext[0] == 6:
+                from .sha256_vm import SHA_BLOCK_TS, fill_sha256_rows
+
+                ptr, length, out_ptr = ext[1]
+                srows, sblocks = fill_sha256_rows(
+                    st, pc, ts, ptr, length, out_ptr)
+                sha_rows += srows
+                sha_blocks += sblocks
+                ts_counter += SHA_BLOCK_TS * len(srows)
+            elif ext is not None and ext[0] == 7:
+                from .vm_ext import DBL_TS_WINDOW, fill_ec_double_row
+
+                drow, dbl = fill_ec_double_row(st, pc, ts, *ext[1])
+                dbl_rows.append(drow)
+                ec_doubles.append(dbl)
+                ts_counter += DBL_TS_WINDOW
+            elif ext is not None and ext[0] == 9:
+                from .fp2_vm import FP2_TS_WINDOW, fill_fp2_row
+
+                frow2, bops2 = fill_fp2_row(st, pc, ts, *ext[1])
+                fp2_rows.append(frow2)
+                bigint_ops.extend(bops2)
+                ts_counter += FP2_TS_WINDOW
+            elif ext is not None and ext[0] == 8:
+                from .deferral_vm import DEFER_TS_WINDOW, fill_defer_row
+
+                frow, defer_acc, p2_in = fill_defer_row(
+                    st, pc, ts, ext[1][0], defer_acc)
+                defer_rows.append(frow)
+                defer_p2_inputs += p2_in
+                ts_counter += DEFER_TS_WINDOW
             st.fin_pc, st.fin_ts = next_pc, ts_counter
             continue
         target = (pc + boff) if kind in BRANCH_SET | {K_JAL} else 0
@@ -2103,11 +2151,8 @@ def generate_traces(program_words: List[int], records: np.ndarray,
     out = []
     for name, air_cls, _kset, pad in _CHIPS:
         chip_rows = rows[name]
-        n = max(4, 1 << (max(len(chip_rows), 1) - 1).bit_length())
-        tr = np.zeros((n, air_cls.width), dtype=np.uint32)
-        for j, r in enumerate(chip_rows):
-            tr[j] = r
-        for j in range(len(chip_rows), n):
+        tr = _stack_rows(chip_rows, air_cls.width)
+        for j in range(len(chip_rows), tr.shape[0]):
             for col, v in pad.items():
                 tr[j, col] = v
             if name == "branch":
@@ -2119,18 +2164,77 @@ def generate_traces(program_words: List[int], records: np.ndarray,
         from .keccak_air import NUM_ROUNDS, KeccakfAir
         from .keccak_vm import KeccakVmAir
 
-        n_k = max(4, 1 << (len(keccak_rows) - 1).bit_length())
-        k_tr = np.zeros((n_k, KeccakVmAir.width), dtype=np.uint32)
-        for j, r in enumerate(keccak_rows):
-            k_tr[j] = r
-        out.append((KeccakVmAir(), k_tr, []))
-
+        out.append((KeccakVmAir(), _stack_rows(keccak_rows, KeccakVmAir.width), []))
         n_perm_rows = NUM_ROUNDS * len(keccak_states)
         log_n = max(5, (n_perm_rows - 1).bit_length())
         kf = KeccakfAir(log_n=log_n)
         out.append((
             kf,
             kf.generate_trace(keccak_states, [1] * len(keccak_states)),
+            [],
+        ))
+
+    # modular / EC / fp2 syscall chips (present only when the program used
+    # them); every 256-bit request lands in one BigIntModMulAir, whose byte
+    # range checks join the byte table's counts before it is built
+    if mod_rows or ec_rows or dbl_rows or fp2_rows:
+        from .bigint_air import BigIntModMulAir
+        from .vm_ext import EC_NUM_COLS, MOD_NUM_COLS, EcVmAir, ModularVmAir
+
+        if mod_rows:
+            out.append((ModularVmAir(), _stack_rows(mod_rows, MOD_NUM_COLS), []))
+        if ec_rows:
+            from .ec_air import EcAddAir
+
+            out.append((EcVmAir(), _stack_rows(ec_rows, EC_NUM_COLS), []))
+            ec_trace, ec_requests = EcAddAir.generate_trace(ec_adds)
+            out.append((EcAddAir(), ec_trace, []))
+            bigint_ops = bigint_ops + ec_requests
+        if fp2_rows:
+            from .fp2_vm import FP2_NUM_COLS, Fp2VmAir
+
+            out.append((Fp2VmAir(), _stack_rows(fp2_rows, FP2_NUM_COLS), []))
+        if dbl_rows:
+            from .ec_double import EcDoubleAir
+            from .vm_ext import DBL_NUM_COLS, EcDoubleVmAir
+
+            out.append((EcDoubleVmAir(), _stack_rows(dbl_rows, DBL_NUM_COLS), []))
+            dbl_trace, dbl_requests = EcDoubleAir.generate_trace(ec_doubles)
+            out.append((EcDoubleAir(), dbl_trace, []))
+            bigint_ops = bigint_ops + dbl_requests
+        bi_trace = BigIntModMulAir.generate_trace(bigint_ops)
+        st.byte_counts += BigIntModMulAir.byte_lookups(bi_trace)
+        out.append((BigIntModMulAir(), bi_trace, []))
+
+    # sha256 syscall chips
+    if sha_rows:
+        from .sha256_air import NUM_ROUNDS as SHA_ROUNDS
+        from .sha256_air import Sha256Air
+        from .sha256_vm import SHA_NUM_COLS, Sha256VmAir
+
+        out.append((Sha256VmAir(), _stack_rows(sha_rows, SHA_NUM_COLS), []))
+        sa = Sha256Air(log_n=max(6, (SHA_ROUNDS * len(sha_blocks) - 1).bit_length()))
+        out.append((sa, sa.generate_trace(sha_blocks, [1] * len(sha_blocks)), []))
+
+    # deferral syscall chip (present only when the program deferred), with
+    # the Poseidon2 chip that serves its sponge
+    if defer_rows:
+        from .deferral_vm import ACC_IN as D_ACC_IN
+        from .deferral_vm import DIGEST as D_DIGEST
+        from .deferral_vm import NUM_COLS as D_NUM_COLS
+        from .deferral_vm import DeferralVmAir
+        from .poseidon2_air import Poseidon2Air
+
+        f_tr = _stack_rows(defer_rows, D_NUM_COLS)
+        # padding rows thread the final accumulator through to the last
+        # row, where the public-value binding reads it
+        f_tr[len(defer_rows):, D_ACC_IN : D_ACC_IN + D_DIGEST] = defer_acc
+        out.append((DeferralVmAir(), f_tr, [int(v) for v in defer_acc]))
+        out.append((
+            Poseidon2Air(),
+            Poseidon2Air.generate_trace(
+                np.asarray(defer_p2_inputs, dtype=np.uint32),
+                [1] * len(defer_p2_inputs)),
             [],
         ))
 

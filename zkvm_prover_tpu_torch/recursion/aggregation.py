@@ -29,7 +29,7 @@ Design notes (TPU-first divergences from openvm):
 
 Siblings at every level are independent machine proofs (the proof-tree DP
 axis, SURVEY.md §2.3); proving them in a process pool waits for
-`parallel/` (ROADMAP Queue 1 item 11).
+`parallel/` (ROADMAP Queue 1 item 7).
 
 Node proofs and the preprocessed commitments of child slots run on the card
 unless given another device; the wire programs build on the host.
@@ -413,7 +413,7 @@ class RecursiveAggregationProver:
                   for i in range(0, len(child_proofs), k)]
         if workers > 1 and len(groups) > 1:
             raise NotImplementedError(
-                "ROADMAP Queue 1 item 11: proving sibling leaf nodes in a "
+                "ROADMAP Queue 1 item 7: proving sibling leaf nodes in a "
                 "process pool needs parallel/")
         current: List[AggNodeProof] = []
         for group in groups:

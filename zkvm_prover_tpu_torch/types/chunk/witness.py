@@ -70,7 +70,7 @@ def execute_and_fold(witness: "ChunkWitness") -> ChunkInfo:
     re-executed first; that waits for `execution/`."""
     if witness.block_witnesses:
         raise NotImplementedError(
-            "ROADMAP Queue 1 item 6: re-executing block witnesses needs execution/")
+            "ROADMAP Queue 1 item 4b: re-executing block witnesses needs execution/")
     return chunk_info_from_execution(witness)
 
 

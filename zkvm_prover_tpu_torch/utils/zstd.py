@@ -16,15 +16,21 @@ module is the port's own codec, so that batch validation runs where no
   empty: then, as for a frame that declares a content size of 0, the
   result is b"" and no block is read.
 - A frame without a content size decodes up to `max_output_size` bytes,
-  and raises if it would grow past it.
-- A frame that names a dictionary (an ID other than 0) raises.
+  and raises if it would grow past it. Its window may be at most 2^27
+  bytes (window log 27); with a declared content size, window logs up to
+  31 decode.
+- A frame that names a dictionary (an ID other than 0) raises, unless it
+  declares a content size of 0.
 - A frame whose checksum flag is set has its content checksum verified
   (the low 32 bits of XXH64, seed 0).
 
-It differs from `zstandard` in one place: a frame that declares a content
-size above `max_output_size` raises here before anything is decoded,
-where `zstandard` trusts the declared size and decodes it. Output never
-grows past `max_output_size`. Malformed input raises `ValueError`.
+It differs from `zstandard` in two places. A frame that declares a
+content size above `max_output_size` raises here before anything is
+decoded, where `zstandard` trusts the declared size and decodes it:
+output never grows past `max_output_size`. And a Huffman-coded literals
+stream whose bits do not end exactly at its last symbol raises here,
+where libzstd returns bytes that depend on how its decoder reads past the
+end (so no rule reproduces them). Malformed input raises `ValueError`.
 
 `compress(data)` writes one frame with the single-segment flag, the
 content size, Raw blocks of at most 128 KiB and no checksum. It is NOT
@@ -45,8 +51,11 @@ MAGIC = 0xFD2FB528
 SKIPPABLE_MAGIC_MASK = 0xFFFFFFF0
 SKIPPABLE_MAGIC = 0x184D2A50
 BLOCK_SIZE_MAX = 1 << 17
-# the largest window the one-shot decoder accepts (libzstd's default limit)
+# the largest window the one-shot decoder accepts: libzstd's default limit
+# for a frame without a content size, and its hard limit for one with a
+# declared content size (which bounds the output on its own)
 WINDOW_LOG_MAX = 27
+WINDOW_LOG_MAX_SIZED = 31
 
 # what the decoder has decoded since the last reset (keys below)
 counts: Counter = Counter()
@@ -592,18 +601,16 @@ def _frame_header(data: bytes):
     fcs_flag, single, checksum, dict_flag = fhd >> 6, (fhd >> 5) & 1, (fhd >> 2) & 1, fhd & 3
     _need(fhd & 0x08 == 0, "reserved bit set in the frame header")
     pos = 5
-    window = None
+    window = log = None
     if not single:
         _need(len(data) > pos, "truncated frame header")
         wd = data[pos]
         pos += 1
         log = 10 + (wd >> 3)
-        _need(log <= WINDOW_LOG_MAX, "frame requires too large a window")
         window = (1 << log) + ((1 << log) >> 3) * (wd & 7)
     did_size = (0, 1, 2, 4)[dict_flag]
     _need(len(data) >= pos + did_size, "truncated frame header")
-    if int.from_bytes(data[pos:pos + did_size], "little") != 0:
-        raise ValueError("zstd: frames that name a dictionary are not supported")
+    dict_id = int.from_bytes(data[pos:pos + did_size], "little")
     pos += did_size
     fcs_size = (1 if single else 0, 2, 4, 8)[fcs_flag]
     _need(len(data) >= pos + fcs_size, "truncated frame header")
@@ -615,6 +622,13 @@ def _frame_header(data: bytes):
     pos += fcs_size
     if single:
         window = content
+    # a frame that declares no content is empty whatever else it names
+    if content != 0:
+        if log is not None:
+            _need(log <= (WINDOW_LOG_MAX if content is None else WINDOW_LOG_MAX_SIZED),
+                  "frame requires too large a window")
+        if dict_id != 0:
+            raise ValueError("zstd: frames that name a dictionary are not supported")
     return content, window, checksum, pos
 
 
