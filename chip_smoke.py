@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py [--log-n 18] [--seed 0] [--out build/chip_smoke.json]
 
-Phases (any failure exits non-zero; nothing is caught or skipped):
+Phases (any failure exits non-zero; nothing is caught or skipped). From
+phase 6 on, a path checks the kernel shapes of its proofs that no earlier
+check of the run covered (`CHECKED`), and every C call of the path must be
+at a shape some check of the run covered:
   1. card and build: nvidia-smi's name and power limit, torch's CUDA
      version, the kernels' build time (nvcc, sm_90a, from csrc/); what the
      compiler made of them and the card's integer issue rates
@@ -37,22 +40,21 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      small machine proof (four AIRs, three heights, a logUp bus), the
      small rv32 proof (bench_guest_program(1, 4): 124 cycles, 18 AIRs) and
      a fibonacci envelope from `Prover.gen_proof_stark` on cuda and on
-     cpu, each equal in every field but `stat`; the small rv32 proof on
-     cuda runs under torch.profiler with device activity only: the rv32
-     kernel census (launches and device ms per kernel, plain torch
-     launches, idle share; no trace file is written);
+     cpu, each equal in every field but `stat` (the small rv32 proof's
+     kernel census, a profile that took 50-77 s here, is
+     tests/test_torch_gpu.py::test_small_rv32_kernel_census);
   6. the rv32 machine path: the native executor built (g++), the benchmark
      guest bench_guest_program(8, 256) run (24,729 cycles) and traced (18
-     AIRs); every kernel shape of its proof checked against its plain
-     version; then `prove_machine` at default_config() with the launch
+     AIRs); the kernel shapes of its proof checked against their plain
+     versions; then `prove_machine` at default_config() with the launch
      counts zeroed just before and read just after, and every C call of
      the proof at a checked shape: guest_cycles, tracegen_s, proof_wall_s,
      proving_khz, per-phase ms, peak memory, the values `ood` observed,
      verify_wall_s (True) and a tampered public value (False);
   7. the host entry point: ChunkTaskGenerator(stark=default_config()) with
      its proof cache in a fresh build/chip_smoke_chunk/; the chunk
-     machine's kernel shapes (18 AIRs, from its executed traces) checked
-     against their plain versions; `Prover.gen_proof_stark` on chunk 0
+     machine's new kernel shapes (18 AIRs, from its executed traces)
+     checked against their plain versions; `Prover.gen_proof_stark` on chunk 0
      (execute the hash-reveal guest, prove on the card, self-verify) with
      the launch counts zeroed just before and read just after, every C
      call at a checked shape: execute, prove and self-verify ms, launches
@@ -67,8 +69,8 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      trip): with the launch counts zeroed just before, `gen_proof_stark`
      executes (the blob's zstd decode and KZG check), makes chunk 0's
      preprocessed commitments on the card, builds the wire verifier of
-     chunk 0 on the host, checks every kernel shape of the batch-plus-wire
-     machine against its plain version just before proving it on the card
+     chunk 0 on the host, checks the new kernel shapes of the batch-plus-wire
+     machine against their plain versions just before proving it on the card
      (the check's launches taken back out), and self-verifies (the wire
      program rebuilt from the claimed child); every C call at a checked
      shape, every counter nonzero; the wire AIRs' rows, the build, pre-root,
@@ -88,12 +90,40 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
      extension syscall family. x(R) mod n == r, the digests in RAM and
      DeferralVmAir's public values (the chain digest of the leaves) are
      checked on the host; the AIRs' heights and widths and the cells are
-     printed; then, as in phase 6, every kernel shape of the proof checked
-     against its plain version, the proof at default_config() (launch
+     printed; then, as in phase 6, the new kernel shapes of the proof
+     checked against their plain versions, the proof at default_config() (launch
      counts zeroed just before, every C call at a checked shape), verify
      (True) and a tampered public value (False);
- 10. the seconds of each phase, the kernels line (JSON), the card line,
-     and last the result line.
+ 10. deferred aggregation: two fibonacci children (log_n 3) from
+     `Prover.gen_proof_stark` at default_config(); then
+     `DeferredProver(default_config()).prove(children)` with the launch
+     counts zeroed just before and read just after: the deferred-agg guest
+     executed (it defers each child and reveals keccak of the leaves), its
+     20-AIR machine proven, the discharge leaf node (the wire verifier of
+     both children) built and proven, the envelope self-verified; each
+     proof's kernel shapes that no earlier phase checked are checked
+     against their plain versions just before it (`CHECKED`; the check's
+     launches taken back out), every C call at a checked shape, every
+     counter nonzero; the parent's AIRs and heights, the discharge's wire
+     rows, the build, prove and self-verify seconds, the phase splits and
+     the peak; `UniversalVerifier` with the deferred-agg vk (True), a child
+     record's public value flipped (False), a discharge byte flipped
+     (False);
+ 11. continuations: phase 6's guest through `execute_segments` in
+     2^14-cycle segments over the default depth-17 memory tree (2
+     segments, one boundary), each traced (19 AIRs: the rv32 chips with
+     ExecBoundaryAirV3, MemoryBoundaryAirV3, MemoryMerkleAir and
+     Poseidon2Air); their new kernel shapes checked; `prove_segments` at
+     default_config() with the launch counts zeroed just before and read
+     just after, every C call at a checked shape, every counter nonzero;
+     `verify_chain` (True); the chain's revealed public values equal to
+     phase 6's unsegmented run; the chain with its segments swapped,
+     without its halting segment and against a wrong initial root (each
+     False); per segment the cycles, AIRs, cells, MemoryMerkleAir and
+     Poseidon2Air rows, prove and verify seconds, and the peak;
+ 12. the seconds of each phase, the kernels line (JSON; launches summed
+     over every path, and per path), the card line, and last the result
+     line.
 The port imports no JAX; this script imports nothing of the JAX package.
 """
 
@@ -169,12 +199,14 @@ def max_err(a, b) -> int:
 
 
 def random_field(gen, shape, device):
+    """Residues mod p, uniform, drawn by `gen` on `device`, its own device
+    (drawn on the host and copied, the inputs of the 2^25-row shapes took
+    most of a shape check's time)."""
     import torch
 
     from zkvm_prover_tpu_torch.fields import babybear as bb
 
-    return torch.randint(0, bb.P, shape, generator=gen, dtype=torch.int64,
-                         device="cpu").to(device=device, dtype=bb.DTYPE)
+    return torch.randint(0, bb.P, shape, generator=gen, dtype=bb.DTYPE, device=device)
 
 
 def check_kernels(log_n: int, width: int, seed: int):
@@ -187,7 +219,7 @@ def check_kernels(log_n: int, width: int, seed: int):
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     n, m = 1 << log_n, 2 << log_n
     rows = []
 
@@ -424,6 +456,31 @@ def call_key(entry: str, args) -> tuple:
     """One C call's launch shape and code path (K1: with its row pitches and
     its optional row tables)."""
     return entry, ENTRY_SHAPES[entry][1](args)
+
+
+# Every kernel shape checked against its plain version so far in this run
+# (by `rv32_shapes` key) and the C calls that checked them: a later path
+# checks only its new shapes, and its C calls must be among these.
+CHECKED = {"shapes": {}, "calls": set()}
+
+
+def remember_checked(shapes: dict, calls) -> None:
+    for key, values in shapes.items():
+        CHECKED["shapes"].setdefault(key, set()).update(values)
+    CHECKED["calls"].update(call_key(e, a) for e, a in calls)
+
+
+def new_shapes(shapes: dict) -> dict:
+    """The shapes of `shapes` that no earlier check of this run covered."""
+    return {key: sorted(set(values) - CHECKED["shapes"].get(key, set()))
+            for key, values in shapes.items()}
+
+
+def unchecked_calls(used, tag: str) -> None:
+    """Fail if a C call of `used` is at a shape no check of this run ran."""
+    unchecked = sorted(set(call_key(e, a) for e, a in used) - CHECKED["calls"])
+    if unchecked:
+        raise AssertionError(f"the {tag} path launched unchecked kernel shapes: {unchecked}")
 
 
 def profile_proof(prove, trace_path: str) -> dict:
@@ -780,12 +837,15 @@ def check_rv32_shapes(shapes: dict, seed: int) -> list:
     from zkvm_prover_tpu_torch.stark import machine
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     shift = bb.GENERATOR
-    rows = []
+    rows, clock = [], [time.perf_counter()]
 
     def record(name, shape, err):
-        rows.append({"name": name, "shape": shape, "max_abs_err": err})
+        # `s`: the shape's inputs, kernel, plain version and comparison
+        now = time.perf_counter()
+        rows.append({"name": name, "shape": shape, "max_abs_err": err, "s": now - clock[0]})
+        clock[0] = now
         if err != 0:
             raise AssertionError(f"{name} {shape} disagrees with its plain version")
 
@@ -843,57 +903,6 @@ def check_rv32_shapes(shapes: dict, seed: int) -> list:
     return rows
 
 
-def kernel_census(prove) -> dict:
-    """One proof under torch.profiler with device activity only (no chrome
-    trace is written): kernel launches and device ms by kind from the raw
-    device records, the union of their intervals as device busy time, and
-    the idle share over the proof's host wall-clock."""
-    import collections
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from zkvm_prover_tpu_torch.kernel_report import ENTRY_KERNELS, short_name
-
-    ours = set(k for ks in ENTRY_KERNELS.values() for k in ks)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prove()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    per_kind = collections.defaultdict(lambda: [0, 0.0])
-    spans = []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        name = e.name()
-        start, dur = e.start_ns(), e.duration_ns()
-        spans.append((start, start + dur))
-        if name.startswith(("Memcpy", "Memset")):
-            kind = name.split()[0].lower()
-        else:
-            kind = short_name(name)
-            if kind.split("<")[0] not in ours:
-                kind = "plain torch kernels"
-        per_kind[kind][0] += 1
-        per_kind[kind][1] += dur / 1e6
-    spans.sort()
-    busy, end = 0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    busy_ms = busy / 1e6
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "per_kind": {k: {"launches": n, "ms": ms} for k, (n, ms) in
-                         sorted(per_kind.items(), key=lambda kv: -kv[1][1])}}
-
-
 def observed_values(proof) -> int:
     """Field elements the out-of-domain openings put into the transcript."""
     import numpy as np
@@ -915,10 +924,11 @@ def tampered_public_value(airs, proof):
 
 
 def checked_machine_proof(tag: str, air_traces, seed: int) -> dict:
-    """Every kernel shape of the machine's proof checked against its plain
-    version; then the proof at default_config() with the launch counts
-    zeroed just before (cold), every C call at a checked shape and every
-    counter nonzero; verify (True) and a tampered public value (False)."""
+    """Every kernel shape of the machine's proof that no earlier check of
+    the run covered checked against its plain version; then the proof at
+    default_config() with the launch counts zeroed just before (cold),
+    every C call at a checked shape and every counter nonzero; verify
+    (True) and a tampered public value (False)."""
     import torch
 
     from zkvm_prover_tpu_torch.ops import ntt_fused
@@ -931,11 +941,12 @@ def checked_machine_proof(tag: str, air_traces, seed: int) -> dict:
     shapes = rv32_shapes(air_traces)
     t0 = time.perf_counter()
     with log_calls() as checked:
-        rows = check_rv32_shapes(shapes, seed)
+        rows = check_rv32_shapes(new_shapes(shapes), seed)
     check_s = time.perf_counter() - t0
+    remember_checked(shapes, checked)
     n_checked = len(set(call_key(e, a) for e, a in checked))
-    print(f"[{tag}] {len(rows)} kernel shapes exact against their plain versions "
-          f"({n_checked} distinct C calls) in {check_s:.1f} s", flush=True)
+    print(f"[{tag}] {len(rows)} kernel shapes new to the run exact against their plain "
+          f"versions ({n_checked} distinct C calls) in {check_s:.1f} s", flush=True)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -947,10 +958,7 @@ def checked_machine_proof(tag: str, air_traces, seed: int) -> dict:
         prove_s = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    unchecked = sorted(set(call_key(e, a) for e, a in used)
-                       - set(call_key(e, a) for e, a in checked))
-    if unchecked:
-        raise AssertionError(f"the proof launched unchecked kernel shapes: {unchecked}")
+    unchecked_calls(used, f"[{tag}]")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the [{tag}] path: {missing}")
@@ -993,7 +1001,7 @@ def rv32_cell(seed: int) -> dict:
     guest run and traced; every kernel shape of its proof checked against
     its plain version; then the proof at default_config() with the launch
     counts zeroed just before (cold), verify (True) and a tampered public
-    value (False). The kernel census runs on phase 5's small guest."""
+    value (False)."""
     air_traces, info = rv32_air_traces(*RV32_GUEST)
     print(f"[6] rv32 guest {RV32_GUEST}: {info['guest_cycles']} cycles, executor built in "
           f"{info['executor_build_s']:.2f} s, traces in {info['tracegen_s']:.2f} s: "
@@ -1008,7 +1016,9 @@ def rv32_cell(seed: int) -> dict:
     print(f"[6] {json.dumps(bench_names)}", flush=True)
     return {**info, **out, **bench_names,
             "airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces],
-            "trace_cells": cells}
+            "trace_cells": cells,
+            "public_values": next([int(v) for v in p] for a, _, p in air_traces
+                                  if type(a).__name__ == "PublicValuesAir")}
 
 
 def ecdsa_cell(seed: int) -> dict:
@@ -1067,23 +1077,24 @@ def ecdsa_cell(seed: int) -> dict:
 
 def small_rv32_cuda_equals_cpu():
     """The small keccak guest's 18-AIR proof at fast_test_config() on cuda
-    (under the device-only profiler: the rv32 kernel census) and on cpu:
-    equal in every field but `stat`."""
+    and on cpu: equal in every field but `stat`."""
+    import torch
+
     from zkvm_prover_tpu_torch.stark import machine
     from zkvm_prover_tpu_torch.stark.config import fast_test_config
 
     air_traces, _ = rv32_air_traces(*RV32_SMALL_GUEST)
     insts = [machine.AirInstance(a, t, p) for a, t, p in air_traces]
-    proofs = []
-    census = kernel_census(lambda: proofs.append(
-        machine.prove_machine(insts, fast_test_config(), device="cuda")))
+    t0 = time.perf_counter()
+    p_cuda = machine.prove_machine(insts, fast_test_config(), device="cuda")
+    torch.cuda.synchronize()
     t1 = time.perf_counter()
     p_cpu = machine.prove_machine(insts, fast_test_config(), device="cpu")
     t2 = time.perf_counter()
-    proofs_equal(proofs[0], p_cpu)
-    if not machine.verify_machine([a for a, _, _ in air_traces], proofs[0], fast_test_config()):
+    proofs_equal(p_cuda, p_cpu)
+    if not machine.verify_machine([a for a, _, _ in air_traces], p_cuda, fast_test_config()):
         raise AssertionError("the small rv32 proof does not verify")
-    return {"cuda_profiled_s": census["wall_ms"] / 1e3, "cpu_s": t2 - t1, "census": census}
+    return {"cuda_s": t1 - t0, "cpu_s": t2 - t1}
 
 
 def fibonacci_envelope_cuda_equals_cpu():
@@ -1101,29 +1112,42 @@ def fibonacci_envelope_cuda_equals_cpu():
 
 
 @contextlib.contextmanager
-def timed_verifications():
-    """Record every `UniversalVerifier.verify_stark_proof_with_vk` call made
-    while the block runs (a prover's host child verifications and its
-    self-verify): the app its vk names, the result and the seconds."""
-    from zkvm_prover_tpu_torch.host.app import app_for_vk
-    from zkvm_prover_tpu_torch.host.verifier import UniversalVerifier
-
-    original = UniversalVerifier.__dict__["verify_stark_proof_with_vk"]
+def timed_calls(owner, name: str, describe=None):
+    """Time every call of `owner.name` (a module's function or a class's
+    static method) while the block runs: the list it yields holds each
+    call's seconds, its result where that is a bool, and what
+    `describe(args, kwargs)` adds."""
+    original = owner.__dict__[name]
+    fn = original.__func__ if isinstance(original, staticmethod) else original
     calls = []
 
-    def timed(vk, proof, stark=None, app=None, device=None):
+    def timed(*args, **kwargs):
         t0 = time.perf_counter()
-        ok = original.__func__(vk, proof, stark, app=app, device=device)
-        named = app or app_for_vk(vk)
-        calls.append({"app": named.name if named else None, "ok": ok,
-                      "s": time.perf_counter() - t0})
-        return ok
+        out = fn(*args, **kwargs)
+        calls.append({"s": time.perf_counter() - t0,
+                      "result": out if isinstance(out, bool) else None,
+                      **(describe(args, kwargs) if describe else {})})
+        return out
 
-    UniversalVerifier.verify_stark_proof_with_vk = staticmethod(timed)
+    setattr(owner, name, staticmethod(timed) if isinstance(original, staticmethod) else timed)
     try:
         yield calls
     finally:
-        UniversalVerifier.verify_stark_proof_with_vk = original
+        setattr(owner, name, original)
+
+
+def timed_verifications():
+    """`timed_calls` on `UniversalVerifier.verify_stark_proof_with_vk`: a
+    prover's host child verifications and its self-verify, each with the
+    app its vk names."""
+    from zkvm_prover_tpu_torch.host.app import app_for_vk
+    from zkvm_prover_tpu_torch.host.verifier import UniversalVerifier
+
+    def app_named(args, kwargs):
+        app = kwargs.get("app", args[3] if len(args) > 3 else None) or app_for_vk(args[0])
+        return {"app": app.name if app else None}
+
+    return timed_calls(UniversalVerifier, "verify_stark_proof_with_vk", app_named)
 
 
 def executed_machine(tag: str, name: str, prover, task) -> list:
@@ -1137,21 +1161,22 @@ def executed_machine(tag: str, name: str, prover, task) -> list:
     return air_traces
 
 
-def checked_shapes(tag: str, name: str, shapes: dict, seed: int) -> tuple:
-    """`check_rv32_shapes` with its C calls logged: (rows, calls)."""
+def checked_shapes(tag: str, name: str, shapes: dict, seed: int) -> list:
+    """`check_rv32_shapes`, its shapes and C calls remembered in CHECKED."""
     with log_calls() as calls:
         rows = check_rv32_shapes(shapes, seed)
+    remember_checked(shapes, calls)
     print(f"[{tag}] {len(rows)} {name} kernel shapes exact against their plain versions "
           f"({len(set(call_key(e, a) for e, a in calls))} distinct C calls)", flush=True)
-    return rows, calls
+    return rows
 
 
-def prove_task(tag: str, prover, task, checked) -> tuple:
+def prove_task(tag: str, prover, task) -> tuple:
     """One `Prover.gen_proof_stark` of `task` (execute, host child
     verification, prove on the card, self-verify) with the launch counts
-    zeroed just before and read just after; every C call at a shape that
-    `checked` (logged C calls) holds, every counter nonzero. Returns
-    (envelope, measurements)."""
+    zeroed just before and read just after; every C call at a shape that a
+    check of this run covered, every counter nonzero. Returns (envelope,
+    measurements)."""
     import torch
 
     from zkvm_prover_tpu_torch.host import serialization
@@ -1166,23 +1191,19 @@ def prove_task(tag: str, prover, task, checked) -> tuple:
         wall_s = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    unchecked = sorted(set(call_key(e, a) for e, a in used)
-                       - set(call_key(e, a) for e, a in checked))
-    if unchecked:
-        raise AssertionError(f"{prover.app.name} proof launched unchecked kernel shapes: "
-                             f"{unchecked}")
+    unchecked_calls(used, prover.app.name)
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {prover.app.name} path: {missing}")
     *children, self_check = verifications
     if len(children) != len(task.aggregated_proofs) or not all(
-            c["ok"] for c in verifications) or self_check["app"] != prover.app.name:
+            c["result"] for c in verifications) or self_check["app"] != prover.app.name:
         raise AssertionError(f"unexpected verifications in the {prover.app.name} proof: "
                              f"{verifications}")
     exec_ms, prove_ms = env.stat.execution_time_mills, env.stat.proving_time_mills
     env_bytes = len(json.dumps(env.to_dict()))
     n_obs = observed_values(serialization.decode_machine_proof(env.proof))
-    child_text = "".join(f", child {c['app']} verified: {c['ok']} in {c['s'] * 1e3:.0f} ms"
+    child_text = "".join(f", child {c['app']} verified: {c['result']} in {c['s'] * 1e3:.0f} ms"
                          for c in children)
     print(f"[{tag}] {prover.app.name} gen_proof_stark {wall_s:.3f} s: execute {exec_ms} ms"
           f"{child_text}, prove {prove_ms} ms, self-verify {self_check['s'] * 1e3:.0f} ms; "
@@ -1228,9 +1249,8 @@ def chunk_cell(seed: int):
     `Prover.gen_proof_stark` on a fresh cache (execute, prove on the card,
     self-verify) with the launch counts zeroed just before, a tampered PI
     hash, and a second call that the cache answers. Returns (report,
-    generator, the checked C calls); the generator holds the envelope,
-    after a JSON round trip, as its chunk 0 proof, which phase 8's batch
-    verifies in-circuit."""
+    generator); the generator holds the envelope, after a JSON round trip,
+    as its chunk 0 proof, which phase 8's batch verifies in-circuit."""
     import shutil
 
     import torch
@@ -1248,8 +1268,8 @@ def chunk_cell(seed: int):
     task = gen.task(0)
     air_traces = executed_machine("7", f"chunk 0 ({gen.blocks_per_chunk} blocks)",
                                   gen.prover, task)
-    rows, checked = checked_shapes("7", "chunk", rv32_shapes(air_traces), seed)
-    env, measured = prove_task("7", gen.prover, task, checked)
+    rows = checked_shapes("7", "chunk", new_shapes(rv32_shapes(air_traces)), seed)
+    env, measured = prove_task("7", gen.prover, task)
     tampered, tampered_s = tampered_envelope(UniversalVerifier("chunk", cfg), env)
     print(f"[7] flipped user_pvs_proof byte: {tampered} in {tampered_s:.3f} s", flush=True)
     if tampered:
@@ -1262,7 +1282,7 @@ def chunk_cell(seed: int):
     return {"airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces],
             "trace_cells": sum(int(t.size) for _, t, _ in air_traces), "shape_checks": rows,
             **measured, "tampered_pi_hash": tampered, "tampered_verify_s": tampered_s,
-            "cached_s": cached_s}, gen, checked
+            "cached_s": cached_s}, gen
 
 
 def tampered_kzg_task(task, how: str):
@@ -1292,12 +1312,13 @@ def in_circuit_probes(used: list, seed: int):
     runs, into the dict it yields: each `compute_pre_roots` call (device ms,
     ending in a synchronize), each wire program build (host s, the wire
     AIRs' rows and the ALU rows in use: the prover's build with the real
-    oracle, then the self-verify's rebuild with the dummy one), and
-    `prove_machine`, which first checks every kernel shape of the machine it
-    is given against its plain version (`rv32_shapes`; the check's launches
-    are taken back out of the counters, its C calls out of `used`, and the
-    peak memory statistic is reset after it) and keeps the proof's own
-    wall-clock and phase split."""
+    oracle, then the self-verify's rebuild with the dummy one), and each
+    `prove_machine`, which first checks the kernel shapes of the machine it
+    is given that no earlier check of the run covered against their plain
+    versions (`rv32_shapes`, `new_shapes`; the check's launches are taken
+    back out of the counters, its C calls out of `used`, and the peak
+    memory statistic is reset after it) and keeps the proof's own
+    wall-clock, phase split, peak and AIRs."""
     import torch
 
     from zkvm_prover_tpu_torch.host import prover as host_prover
@@ -1305,7 +1326,8 @@ def in_circuit_probes(used: list, seed: int):
     from zkvm_prover_tpu_torch.recursion.wire_air import N_OPS, WireAluAir
     from zkvm_prover_tpu_torch.stark import machine
 
-    probes = {"pre_roots_ms": [], "builds": [], "checked": [], "proofs": []}
+    probes = {"pre_roots_ms": [], "builds": [], "proofs": [], "shape_checks": [],
+              "shape_check_s": 0.0}
     originals = (aggregation.compute_pre_roots, host_prover.build_child_verification,
                  aggregation.build_child_verification, machine.prove_machine)
 
@@ -1334,10 +1356,10 @@ def in_circuit_probes(used: list, seed: int):
         air_traces = [(i.air, i.trace, i.public_values) for i in instances]
         snapshot, n0 = counts_snapshot(), len(used)
         t0 = time.perf_counter()
-        probes["shapes"] = rv32_shapes(air_traces)
-        probes["shape_checks"] = check_rv32_shapes(probes["shapes"], seed)
-        probes["shape_check_s"] = time.perf_counter() - t0
-        probes["checked"] += used[n0:]
+        shapes = rv32_shapes(air_traces)
+        probes["shape_checks"] += check_rv32_shapes(new_shapes(shapes), seed)
+        probes["shape_check_s"] += time.perf_counter() - t0
+        remember_checked(shapes, used[n0:])
         del used[n0:]
         restore_counts(snapshot)
         probes["airs"] = [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces]
@@ -1346,7 +1368,9 @@ def in_circuit_probes(used: list, seed: int):
         t0 = time.perf_counter()
         proof = originals[3](instances, config, device)
         torch.cuda.synchronize()
-        probes["proofs"].append({"s": time.perf_counter() - t0, "stat": dict(proof.stat)})
+        probes["proofs"].append({"s": time.perf_counter() - t0, "stat": dict(proof.stat),
+                                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                                 "airs": probes["airs"]})
         return proof
 
     aggregation.compute_pre_roots = pre_roots
@@ -1360,15 +1384,14 @@ def in_circuit_probes(used: list, seed: int):
          aggregation.build_child_verification, machine.prove_machine) = originals
 
 
-def batch_in_circuit(prover, task, seed: int, child_checked: list) -> tuple:
+def batch_in_circuit(prover, task, seed: int) -> tuple:
     """One `Prover.gen_proof_stark` of the batch task with the child verified
     in-circuit: the launch counts zeroed just before and read just after;
     the machine's kernel shapes (the batch's 18 AIRs and the wire AIRs)
-    checked against their plain versions just before its proof; every C
-    call of the path at a checked shape (the child's preprocessed
-    commitments at the shapes phase 7 checked, `child_checked`) and every
-    counter nonzero. Returns (envelope, measurements, the machine's shapes,
-    the checked C calls)."""
+    that no earlier check of the run covered checked against their plain
+    versions just before its proof; every C call of the path at a checked
+    shape (the child's preprocessed commitments at shapes phase 7 checked)
+    and every counter nonzero. Returns (envelope, measurements)."""
     import torch
 
     from zkvm_prover_tpu_torch.host import serialization
@@ -1407,17 +1430,13 @@ def batch_in_circuit(prover, task, seed: int, child_checked: list) -> tuple:
             print(f"      {key:24s} {val:10.1f} ms, running peak "
                   f"{proof['stat'].get(key[:-3] + '_peak_bytes')} bytes")
     print(f"[8] launches: {counts}", flush=True)
-    checked = probes["checked"] + child_checked
-    unchecked = sorted(set(call_key(e, a) for e, a in used)
-                       - set(call_key(e, a) for e, a in checked))
-    if unchecked:
-        raise AssertionError(f"the in-circuit batch launched unchecked kernel shapes: {unchecked}")
+    unchecked_calls(used, "in-circuit batch")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the in-circuit batch path: {missing}")
     if ([b["oracle"] for b in builds] != ["RealOracle", "DummyOracle"]
             or builds[0]["rows"] != builds[1]["rows"] or len(probes["proofs"]) != 1
-            or [(v["app"], v["ok"]) for v in verifications] != [("batch", True)]
+            or [(v["app"], v["result"]) for v in verifications] != [("batch", True)]
             or len(env.agg_children) != 1):
         raise AssertionError(f"unexpected in-circuit batch path: builds {builds}, "
                              f"verifications {verifications}")
@@ -1430,10 +1449,10 @@ def batch_in_circuit(prover, task, seed: int, child_checked: list) -> tuple:
                  "phases_ms": {k: v for k, v in proof["stat"].items() if k.endswith("_ms")},
                  "self_verify_s": verifications[0]["s"], "peak_bytes": peak,
                  "proof_bytes": len(env.proof), "ood_observed_values": n_obs,
-                 "launches": counts}, probes["shapes"], checked
+                 "launches": counts}
 
 
-def chain_cell(chunks, chunk_checked: list, seed: int) -> dict:
+def chain_cell(chunks, seed: int) -> dict:
     """Phase 8: the batch and bundle layers over phase 7's chunk 0 proof.
     The batch through `Prover(ProverConfig("batch", stark=default_config()))`
     with its default in-circuit child verification, over BatchTaskGenerator's
@@ -1459,7 +1478,7 @@ def chain_cell(chunks, chunk_checked: list, seed: int) -> dict:
     report = {}
 
     task = batches.task(0)
-    env, measured, shapes, checked = batch_in_circuit(prover, task, seed, chunk_checked)
+    env, measured = batch_in_circuit(prover, task, seed)
     batches.add_proof(0, task, env)
     report["batch"] = measured
 
@@ -1482,12 +1501,11 @@ def chain_cell(chunks, chunk_checked: list, seed: int) -> dict:
 
     bundle_task = bundles.task()
     air_traces = executed_machine("8", "the bundle (1 batch)", bundles.prover, bundle_task)
-    new = {k: sorted(set(v) - set(shapes[k])) for k, v in rv32_shapes(air_traces).items()}
+    new = new_shapes(rv32_shapes(air_traces))
     rows = []
     if any(new.values()):
-        rows, calls = checked_shapes("8", "new bundle", new, seed + 1)
-        checked = checked + calls
-    bundle_env, measured = prove_task("8", bundles.prover, bundle_task, checked)
+        rows = checked_shapes("8", "new bundle", new, seed + 1)
+    bundle_env, measured = prove_task("8", bundles.prover, bundle_task)
     report["bundle"] = {"airs": [[type(a).__name__, list(t.shape), len(p)]
                                  for a, t, p in air_traces],
                         "trace_cells": sum(int(t.size) for _, t, _ in air_traces),
@@ -1526,6 +1544,251 @@ def chain_cell(chunks, chunk_checked: list, seed: int) -> dict:
     torch.cuda.empty_cache()
     return report
 
+
+# each fibonacci child of phase 10: log_n 3, not the reference test's 5, for
+# the script's time (the discharge's WireAluAir 2^19 rows, not 2^20)
+DEFER_CHILD_WITNESS = b'{"log_n": 3}'
+
+
+def deferred_cell(seed: int) -> dict:
+    """Phase 10: deferred aggregation. Two fibonacci children
+    (`DEFER_CHILD_WITNESS`) from
+    `Prover.gen_proof_stark` at default_config(); then
+    `DeferredProver(default_config()).prove(children)` with the launch
+    counts zeroed just before and read just after: the deferred-agg guest
+    executed (it defers each child and reveals keccak of the leaves), its
+    20-AIR machine proven, the discharge leaf node (the wire verifier of
+    both children) built and proven, and the envelope self-verified (the
+    node rebuilt); each proof's new kernel shapes checked against their
+    plain versions just before it (the check's launches taken back out),
+    every C call at a checked shape, every counter nonzero. Then
+    `UniversalVerifier` with the deferred-agg vk (True), a child record's
+    public value flipped (False) and a byte of the discharge flipped
+    (False)."""
+    import torch
+
+    from zkvm_prover_tpu_torch.host import (DeferredAggApp, DeferredProver, Prover,
+                                            ProverConfig, ProvingTask, StarkProof,
+                                            UniversalVerifier)
+    from zkvm_prover_tpu_torch.host import deferred
+    from zkvm_prover_tpu_torch.stark.config import default_config
+
+    cfg = default_config()
+    children_prover = Prover(ProverConfig("fibonacci", stark=cfg))
+    torch.cuda.synchronize()
+    with log_calls() as used, in_circuit_probes(used, seed) as probes:
+        t0 = time.perf_counter()
+        children = [children_prover.gen_proof_stark(ProvingTask(
+            identifier=f"defer-child-{i}", serialized_witness=[DEFER_CHILD_WITNESS]))
+            for i in range(2)]
+        children_s = time.perf_counter() - t0 - probes["shape_check_s"]
+    unchecked_calls(used, "fibonacci child")
+    print(f"[10] two fibonacci children ({DEFER_CHILD_WITNESS.decode()}) in {children_s:.3f} s "
+          f"(less {probes['shape_check_s']:.1f} s of shape checks)", flush=True)
+
+    prover = DeferredProver(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    with log_calls() as used, in_circuit_probes(used, seed) as probes, \
+            timed_calls(deferred, "verify_deferred") as self_checks:
+        t0 = time.perf_counter()
+        env = prover.prove(children, identifier="chip-smoke-deferred")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    entry_s = wall_s - probes["shape_check_s"]
+    counts = launch_counts()
+    peak = max(p["peak_bytes"] for p in probes["proofs"])
+    unchecked_calls(used, "deferred aggregation")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the deferred path: {missing}")
+    builds = probes["builds"]
+    if (len(probes["proofs"]) != 2 or [b["oracle"] for b in builds]
+            != ["DummyOracle", "RealOracle", "DummyOracle"]
+            or [c["result"] for c in self_checks] != [True]):
+        raise AssertionError(f"unexpected deferred path: builds {builds}, "
+                             f"self-verify {self_checks}")
+    parent, discharge = probes["proofs"]
+    card = card_line()
+    print(f"[10] deferred parent ({card}): {len(parent['airs'])} AIRs, heights "
+          f"{[a[1][0] for a in parent['airs']]}", flush=True)
+    print(f"[10] discharge node: wire rows {builds[1]['rows']}, ALU rows in use "
+          f"{builds[1]['alu_rows_used']}", flush=True)
+    print(f"[10] DeferredProver.prove {entry_s:.3f} s (the wall-clock {wall_s:.3f} s less "
+          f"{probes['shape_check_s']:.3f} s of shape checks, {len(probes['shape_checks'])} "
+          f"new shapes): execute {env.stat.execution_time_mills} ms; parent prove "
+          f"{parent['s'] * 1e3:.0f} ms; compute_pre_roots "
+          f"{[round(t, 1) for t in probes['pre_roots_ms']]} ms; builds (dummy, real, dummy) "
+          f"{[round(b['s'], 3) for b in builds]} s; discharge prove {discharge['s'] * 1e3:.0f} "
+          f"ms; self-verify {self_checks[0]['s']:.3f} s; peak {peak} bytes", flush=True)
+    for tag, proof in (("parent", parent), ("discharge", discharge)):
+        print(f"      {tag}: " + ", ".join(f"{k[:-3]} {v:.0f}" for k, v in proof["stat"].items()
+                                          if k.endswith("_ms")), flush=True)
+    print(f"[10] launches: {counts}", flush=True)
+
+    verify = UniversalVerifier.verify_stark_proof_with_vk
+    vk = DeferredAggApp().vk_bytes()
+    carried = StarkProof.from_dict(json.loads(json.dumps(env.to_dict())))
+    t0 = time.perf_counter()
+    ok = verify(vk, carried, cfg)
+    verify_s = time.perf_counter() - t0
+    bad_pv = StarkProof.from_dict(carried.to_dict())
+    bad_pv.agg_children[0].pvs[0] = bad_pv.agg_children[0].pvs[0] ^ 1
+    t0 = time.perf_counter()
+    pv_ok = verify(vk, bad_pv, cfg)
+    pv_s = time.perf_counter() - t0
+    bad_discharge = StarkProof.from_dict(carried.to_dict())
+    raw = bytearray(bad_discharge.deferral_discharge)
+    raw[len(raw) // 2] ^= 1
+    bad_discharge.deferral_discharge = bytes(raw)
+    t0 = time.perf_counter()
+    discharge_ok = verify(vk, bad_discharge, cfg)
+    discharge_s = time.perf_counter() - t0
+    print(f"[10] UniversalVerifier (deferred-agg vk): {ok} in {verify_s:.3f} s; a child "
+          f"record's PV flipped: {pv_ok} in {pv_s:.3f} s; a discharge byte flipped: "
+          f"{discharge_ok} in {discharge_s:.3f} s", flush=True)
+    if not ok or pv_ok or discharge_ok:
+        raise AssertionError("deferred verification phase failed")
+    torch.cuda.empty_cache()
+    return {"card": card, "children_s": children_s, "prove_s": entry_s,
+            "wall_s_with_shape_check": wall_s, "execute_ms": env.stat.execution_time_mills,
+            "parent_airs": parent["airs"], "parent_prove_ms": parent["s"] * 1e3,
+            "parent_phases_ms": {k: v for k, v in parent["stat"].items() if k.endswith("_ms")},
+            "discharge_airs": discharge["airs"], "discharge_prove_ms": discharge["s"] * 1e3,
+            "discharge_phases_ms": {k: v for k, v in discharge["stat"].items()
+                                    if k.endswith("_ms")},
+            "pre_roots_ms": probes["pre_roots_ms"], "builds": builds,
+            "self_verify_s": self_checks[0]["s"], "shape_check_s": probes["shape_check_s"],
+            "shape_checks": probes["shape_checks"], "peak_bytes": peak, "launches": counts,
+            "proof_bytes": len(env.proof), "discharge_bytes": len(env.deferral_discharge),
+            "verify_s": verify_s, "tampered_child_pv": pv_ok, "tampered_child_pv_s": pv_s,
+            "tampered_discharge": discharge_ok, "tampered_discharge_s": discharge_s}
+
+
+SEGMENT_CYCLES = 1 << 14      # phase 11: the bench guest in two segments
+
+
+def merged_chain_pvs(bundles) -> list:
+    """The user public values a segment chain reveals, merged: each word's
+    limbs from the segment that revealed it, then the per-word counts."""
+    from zkvm_prover_tpu_torch.models import rv32_v2
+    from zkvm_prover_tpu_torch.models.rv32_continuations import _seg_pvs
+
+    n = rv32_v2.N_PV_WORDS
+    limbs, counts = [0] * (4 * n), [0] * n
+    for bundle in bundles:
+        pvs = _seg_pvs(bundle)[2]
+        for w in range(n):
+            if pvs[4 * n + w]:
+                limbs[4 * w:4 * w + 4] = pvs[4 * w:4 * w + 4]
+                counts[w] += int(pvs[4 * n + w])
+    return [int(v) for v in limbs + counts]
+
+
+def continuation_cell(seed: int, unsegmented_pvs) -> dict:
+    """Phase 11: continuations. Phase 6's guest run by `execute_segments` in
+    2^14-cycle segments (two segments, one boundary) over the default
+    depth-17 memory tree; each segment traced (the segment machine: the
+    rv32 chips with ExecBoundaryAirV3, MemoryBoundaryAirV3,
+    MemoryMerkleAir and Poseidon2Air); the segments' new kernel shapes
+    checked against their plain versions; `prove_segments` at
+    default_config() with the launch counts zeroed just before and read
+    just after, every C call at a checked shape, every counter nonzero;
+    `verify_chain` (True); the chain's public values against phase 6's
+    unsegmented run of the same guest; the chain with its segments swapped,
+    without its halting segment and against a wrong initial root (each
+    False)."""
+    import numpy as np
+    import torch
+
+    from zkvm_prover_tpu_torch.models import rv32_continuations as cont
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import default_config
+    from zkvm_prover_tpu_torch.vm import guests
+
+    cfg = default_config()
+    prog = guests.bench_guest_program(*RV32_GUEST)
+    t0 = time.perf_counter()
+    segs = cont.execute_segments(prog, SEGMENT_CYCLES, data_base=RV32_DATA_BASE)
+    exec_s = time.perf_counter() - t0
+    per_seg, shapes = [], {}
+    for i, seg in enumerate(segs):
+        t0 = time.perf_counter()
+        triples = cont.generate_segment_traces(prog, seg, RV32_DATA_BASE)
+        tracegen_s = time.perf_counter() - t0
+        rows = {type(a).__name__: int(t.shape[0]) for a, t, _ in triples}
+        merkle_tr = next(t for a, t, _ in triples if isinstance(a, cont.MemoryMerkleAir))
+        real = {"MemoryMerkleAir": int(merkle_tr[:, cont.MemoryMerkleAir.IS_REAL].sum()),
+                "MemoryBoundaryAirV3": int(next(
+                    t for a, t, _ in triples if isinstance(a, cont.MemoryBoundaryAirV3)
+                )[:, cont.MemoryBoundaryAirV3.IS_REAL].sum())}
+        cells = sum(int(t.size) for _, t, _ in triples)
+        per_seg.append({"cycles": int(len(seg.records)), "halted": seg.halted,
+                        "init_pc": seg.init_pc, "final_pc": seg.final_pc,
+                        "touched_ram_words": int(len(seg.touched_ram)), "airs": len(triples),
+                        "rows": rows, "real_rows": real, "cells": cells,
+                        "tracegen_s": tracegen_s})
+        print(f"[11] segment {i}: {len(seg.records)} cycles, pc {seg.init_pc} -> "
+              f"{seg.final_pc}, halted {seg.halted}, {len(seg.touched_ram)} RAM words touched; "
+              f"{len(triples)} AIRs, {cells} cells, traces in {tracegen_s:.2f} s; "
+              f"MemoryMerkleAir {rows['MemoryMerkleAir']} rows ({real['MemoryMerkleAir']} "
+              f"real), Poseidon2Air {rows['Poseidon2Air']} rows", flush=True)
+        for key, values in rv32_shapes(triples).items():
+            shapes.setdefault(key, set()).update(values)
+    shapes = {k: sorted(v) for k, v in shapes.items()}
+    if len(segs) != 2:
+        raise AssertionError(f"expected 2 segments, got {len(segs)}")
+    rows = checked_shapes("11", "new segment", new_shapes(shapes), seed)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with log_calls() as used, timed_calls(machine, "prove_machine") as proofs:
+        t0 = time.perf_counter()
+        bundles = cont.prove_segments(prog, segs, cfg, data_base=RV32_DATA_BASE)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    unchecked_calls(used, "segment")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the segment path: {missing}")
+    card = card_line()
+    print(f"[11] prove_segments ({card}) {prove_s:.3f} s: per segment "
+          f"{[round(p['s'], 3) for p in proofs]} s; peak {peak} bytes", flush=True)
+    print(f"[11] launches: {counts}", flush=True)
+
+    with timed_calls(machine, "verify_machine") as verifications:
+        t0 = time.perf_counter()
+        ok = cont.verify_chain(bundles, cfg)
+        verify_s = time.perf_counter() - t0
+    chain_pvs = merged_chain_pvs(bundles)
+    pvs_equal = chain_pvs == [int(v) for v in unsegmented_pvs]
+    tampers = {}
+    for how, args, kwargs in (
+            ("segments swapped", (bundles[::-1],), {}),
+            ("halting segment dropped", (bundles[:-1],), {}),
+            ("wrong initial root", (bundles,),
+             {"initial_root": cont.MemState().root() ^ np.uint32(1)})):
+        t0 = time.perf_counter()
+        tampers[how] = (cont.verify_chain(*args, cfg, **kwargs), time.perf_counter() - t0)
+    print(f"[11] verify_chain: {ok} in {verify_s:.3f} s (per segment "
+          f"{[round(v['s'], 3) for v in verifications]} s); public values equal phase 6's "
+          f"unsegmented run: {pvs_equal}; "
+          + "; ".join(f"{how}: {r} in {s:.3f} s" for how, (r, s) in tampers.items()), flush=True)
+    if not ok or not pvs_equal or any(r for r, _ in tampers.values()):
+        raise AssertionError("continuation verification phase failed")
+    torch.cuda.empty_cache()
+    return {"card": card, "segment_cycles": SEGMENT_CYCLES, "depth": cont.DEPTH,
+            "execute_s": exec_s, "segments": per_seg, "shape_checks": rows,
+            "prove_s": prove_s, "prove_s_per_segment": [p["s"] for p in proofs],
+            "phases_ms_per_segment": [{k: v for k, v in b.proof.stat.items()
+                                       if k.endswith("_ms")} for b in bundles],
+            "peak_bytes": peak, "launches": counts, "verify_s": verify_s,
+            "verify_s_per_segment": [v["s"] for v in verifications],
+            "chain_pvs_equal_unsegmented": pvs_equal,
+            "tampered": {how: {"result": r, "s": t} for how, (r, t) in tampers.items()}}
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1702,14 +1965,9 @@ def main() -> int:
     print("[5] small machine proofs (4 AIRs, 3 heights, a logUp bus) on cuda and cpu "
           "are identical", flush=True)
     report["small_rv32"] = small_rv32_cuda_equals_cpu()
-    census = report["small_rv32"]["census"]
     print(f"[5] small rv32 proofs (bench_guest_program{RV32_SMALL_GUEST}, 18 AIRs) on cuda "
-          f"({report['small_rv32']['cuda_profiled_s']:.1f} s, profiled) and cpu "
+          f"({report['small_rv32']['cuda_s']:.1f} s) and cpu "
           f"({report['small_rv32']['cpu_s']:.1f} s) are identical", flush=True)
-    print(f"[5] kernel census of the cuda proof: wall {census['wall_ms']:.1f} ms, device busy "
-          f"{census['device_busy_ms']:.1f} ms, idle share {census['idle_share']:.4f}")
-    for name, row in census["per_kind"].items():
-        print(f"      {name:30s} launches {row['launches']:8d}  device ms {row['ms']:9.3f}")
     fibonacci_envelope_cuda_equals_cpu()
     print("[5] fibonacci envelopes from Prover.gen_proof_stark on cuda and cpu are identical",
           flush=True)
@@ -1720,20 +1978,28 @@ def main() -> int:
     phase_done(6)
 
     # 7. the host entry point
-    report["chunk"], chunks, chunk_checked = chunk_cell(args.seed + 4)
+    report["chunk"], chunks = chunk_cell(args.seed + 4)
     phase_done(7)
 
     # 8. the batch and bundle layers over chunk 0
-    report["chain"] = chain_cell(chunks, chunk_checked, args.seed + 5)
+    report["chain"] = chain_cell(chunks, args.seed + 5)
     phase_done(8)
 
     # 9. the ext guest: ECDSA verify and every other extension syscall
     report["ecdsa"] = ecdsa_cell(args.seed + 6)
     phase_done(9)
 
-    # 10. the kernels line: per kernel, its largest main-path shape; launches
-    # summed over the seven paths (single-AIR proof, machine cell, rv32,
-    # chunk, batch, bundle, ext guest)
+    # 10. deferred aggregation over two fibonacci children
+    report["deferred"] = deferred_cell(args.seed + 7)
+    phase_done(10)
+
+    # 11. continuations: phase 6's guest in two segments
+    report["continuations"] = continuation_cell(args.seed + 8, report["rv32"]["public_values"])
+    phase_done(11)
+
+    # 12. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the nine paths (single-AIR proof, machine cell, rv32,
+    # chunk, batch, bundle, ext guest, deferred aggregation, continuations)
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -1749,7 +2015,9 @@ def main() -> int:
                    "chunk": report["chunk"]["launches"][row["counter"]],
                    "batch": report["chain"]["batch"]["launches"][row["counter"]],
                    "bundle": report["chain"]["bundle"]["launches"][row["counter"]],
-                   "ecdsa": report["ecdsa"]["launches"][row["counter"]]}
+                   "ecdsa": report["ecdsa"]["launches"][row["counter"]],
+                   "deferred": report["deferred"]["launches"][row["counter"]],
+                   "continuations": report["continuations"]["launches"][row["counter"]]}
         entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -1757,7 +2025,7 @@ def main() -> int:
                      shape=row["shape"], bytes=row["bytes"])
         line.append(entry)
     report["total_s"] = time.perf_counter() - t_all
-    print(f"[10] seconds by phase: "
+    print(f"[12] seconds by phase: "
           + ", ".join(f"{n}: {t:.1f}" for n, t in report["phase_s"].items())
           + f"; total {report['total_s']:.1f} s", flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

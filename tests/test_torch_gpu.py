@@ -475,6 +475,34 @@ def test_small_rv32_proof_cuda_equals_cpu(cuda):
     assert machine.verify_machine([x for x, _, _ in air_traces], a, fast_test_config())
 
 
+def test_small_rv32_kernel_census(cuda):
+    """The small rv32 proof on the card under the device-only profiler
+    (`kernel_report.kernel_census`): every C entry point's kernels launched,
+    the plain torch launches and the device's idle share, printed as one
+    JSON line."""
+    import json
+
+    from zkvm_prover_tpu_torch import _build
+    from zkvm_prover_tpu_torch.kernel_report import ENTRY_KERNELS, kernel_census
+    from zkvm_prover_tpu_torch.models import rv32_v2
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+    from zkvm_prover_tpu_torch.vm import executor, guests
+
+    prog = guests.bench_guest_program(1, 4)
+    ex = executor.Rv32Executor()
+    ex.load_program(prog)
+    assert ex.run(1 << 18) == executor.HALTED
+    air_traces = rv32_v2.generate_traces(prog, ex.records(), data_base=0x3000)
+    insts = [machine.AirInstance(a, t, p) for a, t, p in air_traces]
+    _build.lib()
+    census = kernel_census(lambda: machine.prove_machine(insts, fast_test_config(), device=cuda))
+    print("rv32 kernel census " + json.dumps(census), flush=True)
+    launched = {k.split("<")[0] for k, v in census["per_kind"].items() if v["launches"]}
+    assert all(launched & set(ks) for ks in ENTRY_KERNELS.values())
+    assert 0 < census["device_busy_ms"] <= census["wall_ms"]
+
+
 def test_ext_guest_proof_cuda_equals_cpu(cuda):
     """The ECDSA-verify guest at 16-bit scalars: every extension syscall
     family (modop, ec_add, ec_double, keccak, sha256, fp2, defer), 29 AIRs."""
@@ -582,3 +610,96 @@ def test_recursion_leaf_node_cuda_equals_cpu(cuda):
         proofs[str(dev)], pi = prog.prove([child])
         assert prog.verify(proofs[str(dev)], expected_digest=pi)
     _proofs_equal(proofs["cuda"], proofs["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# deferred aggregation (host/deferred.py) and continuations
+# (models/rv32_continuations.py)
+# ---------------------------------------------------------------------------
+
+
+def _fibonacci_children(cfg, device, log_n):
+    from zkvm_prover_tpu_torch.host import Prover, ProverConfig, ProvingTask
+
+    prover = Prover(ProverConfig("fibonacci", stark=cfg, device=device))
+    witness = [f'{{"log_n": {log_n}}}'.encode()]
+    return [prover.gen_proof_stark(ProvingTask(identifier=f"child-{i}",
+                                               serialized_witness=witness))
+            for i in range(2)]
+
+
+def test_deferred_envelope_cuda_equals_cpu(cuda):
+    """A deferred envelope over two fibonacci children (log_n 3) at 2
+    queries: the parent and discharge proofs made on the card equal the
+    host's, and the card's envelope verifies."""
+    from zkvm_prover_tpu_torch.host import DeferredProver, verify_deferred
+
+    children = _fibonacci_children(_tiny(), "cpu", 3)
+    a = DeferredProver(_tiny(), device=cuda).prove(children)
+    b = DeferredProver(_tiny(), device="cpu").prove(children)
+    for name in ("proof", "user_pvs_proof", "baseline", "deferral_merkle_proofs",
+                 "input_commits", "deferral_discharge"):
+        assert getattr(a, name) == getattr(b, name), name
+    assert verify_deferred(a, _tiny(), device=cuda)
+
+
+def test_segment_chain_cuda_equals_cpu(cuda):
+    """A segmented keccak guest that reveals its digest (three 512-cycle
+    segments) at 2 queries: the segment proofs made on the card equal the
+    host's, and the card's chain verifies."""
+    from zkvm_prover_tpu_torch.models import rv32_continuations as cont
+    from zkvm_prover_tpu_torch.vm import asm
+
+    msg, base, out = b"segmented keccak!", 0x3000, 0x3080
+    body = []
+    padded = msg + b"\x00" * (-len(msg) % 4)
+    for i in range(0, len(padded), 4):
+        body += asm.li("t0", int.from_bytes(padded[i:i + 4], "little"))
+        body += asm.li("t1", base + i)
+        body.append(asm.sw("t0", "t1", 0))
+    body += [*asm.li("s0", 0), *asm.li("s1", 300), ("label", "spin1"),
+             asm.addi("s0", "s0", 1), ("branch", asm.bne, "s0", "s1", "spin1")]
+    body += asm.keccak256(base, len(msg), out)
+    body += [*asm.li("s0", 0), ("label", "spin2"),
+             asm.addi("s0", "s0", 1), ("branch", asm.bne, "s0", "s1", "spin2")]
+    for w in range(8):      # verify_chain wants every PV word revealed once
+        body += [*asm.li("t1", out + 4 * w), asm.lw("t0", "t1", 0), *asm.reveal("t0", w)]
+    prog = asm.assemble(body + [asm.halt(0)])
+    segs = cont.execute_segments(prog, 512, data_base=base)
+    assert len(segs) == 3
+    a = cont.prove_segments(prog, segs, _tiny(), data_base=base, device=cuda)
+    b = cont.prove_segments(prog, segs, _tiny(), data_base=base, device="cpu")
+    for x, y in zip(a, b):
+        _proofs_equal(x.proof, y.proof)
+    assert cont.verify_chain(a, _tiny(), device=cuda)
+
+
+def test_deferred_over_chunk_child_cuda(cuda, tmp_path, monkeypatch):
+    """A deferred aggregation over chunk 0's envelope at default_config():
+    the child a real batch defers. Its discharge node verifies chunk 0's
+    proof in a 2^24-row wire program; the envelope verifies through
+    `UniversalVerifier` and a flipped child public value does not."""
+    import time
+
+    from zkvm_prover_tpu_torch.host import (DeferredAggApp, DeferredProver, StarkProof,
+                                            UniversalVerifier)
+    from zkvm_prover_tpu_torch.integration import ChunkTaskGenerator
+    from zkvm_prover_tpu_torch.stark.config import default_config
+
+    monkeypatch.setenv("OUTPUT_DIR", str(tmp_path))
+    cfg = default_config()
+    gen = ChunkTaskGenerator(stark=cfg)
+    t0 = time.perf_counter()
+    chunk = gen.prover.gen_proof_stark(gen.task(0))
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    env = DeferredProver(cfg).prove([chunk], identifier="deferred-chunk-0")
+    t2 = time.perf_counter()
+    vk = DeferredAggApp().vk_bytes()
+    assert UniversalVerifier.verify_stark_proof_with_vk(vk, env, cfg)
+    t3 = time.perf_counter()
+    bad = StarkProof.from_dict(env.to_dict())
+    bad.agg_children[0].pvs[0] ^= 1
+    assert not UniversalVerifier.verify_stark_proof_with_vk(vk, bad, cfg)
+    print(f"chunk 0 {t1 - t0:.1f} s; DeferredProver.prove {t2 - t1:.1f} s; verify "
+          f"{t3 - t2:.1f} s; peak {torch.cuda.max_memory_allocated()} bytes")

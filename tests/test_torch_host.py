@@ -440,20 +440,24 @@ def test_chunk_witness_with_block_witnesses_raises(chunks):
 
 @pytest.mark.parametrize("what", ["agg_children", "deferral_discharge", "evm_proof"])
 def test_unported_verifier_paths_raise(proven, what):
-    """The deferral discharge and EvmProof paths still raise; a forged
-    `AggChildRecord` on an envelope that aggregates nothing gives False."""
+    """The EvmProof path still raises. A forged `AggChildRecord` on an
+    envelope that aggregates nothing gives False, and so does a fibonacci
+    envelope given a deferral discharge: it passes the fibonacci vk guard
+    and goes to `verify_deferred`, which wants the deferred-agg vk (the
+    name is the one the test had while that path raised)."""
     env = _carried("port", proven["fibonacci", "port"][2])
     v = UniversalVerifier("fibonacci", fast_test_config(), device="cpu")
     if what == "agg_children":
         env.agg_children = [AggChildRecord(vk=env.baseline, log_ns=[4], pvs=[1])]
         assert v.verify_stark_proof(env) is False
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if what == "evm_proof":
+    elif what == "deferral_discharge":
+        env.deferral_discharge = b"\x01"
+        assert v.verify_stark_proof(env) is False
+        ref_env = _carried("reference", env)
+        assert RefVerifier("fibonacci", ref_fast_config()).verify_stark_proof(ref_env) is False
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             v.verify_evm_proof(EvmProof(proof=b"\x00", instances=b"\x00" * 32))
-        else:
-            env.deferral_discharge = b"\x01"
-            v.verify_stark_proof(env)
 
 
 # ---------------------------------------------------------------------------
@@ -476,7 +480,8 @@ import zkvm_prover_tpu_torch.models.bigint_air, zkvm_prover_tpu_torch.models.ec_
 import zkvm_prover_tpu_torch.models.ec_double, zkvm_prover_tpu_torch.models.vm_ext
 import zkvm_prover_tpu_torch.models.fp2_vm, zkvm_prover_tpu_torch.models.sha256_air
 import zkvm_prover_tpu_torch.models.sha256_vm, zkvm_prover_tpu_torch.models.deferral_vm
-import zkvm_prover_tpu_torch.vm.guests
+import zkvm_prover_tpu_torch.vm.guests, zkvm_prover_tpu_torch.host.deferred
+import zkvm_prover_tpu_torch.models.rv32_continuations
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "cryptography", "zkvm_prover_tpu")]
 print("clean")
 """

@@ -39,8 +39,8 @@ class BatchCircuit(AggCircuit):
 
         # 1. verify aggregated chunk proofs (commitment checks; the STARK
         #    verification of children happens in the prover, on the host or
-        #    in-circuit; the in-guest deferral waits for host/deferred.py,
-        #    ROADMAP Queue 1 item 2)
+        #    in-circuit; a guest that defers them instead is
+        #    host/deferred.py's deferred-agg app)
         proofs = cls.verify_proofs(witness)
 
         # 2. chunk PIs: chained and matching the child proofs' pi hashes

@@ -2,7 +2,9 @@
 
 The system has no weights. What crosses between the two packages is the
 Poseidon2 round-constant tables, the traces (plain numpy, shared as they
-are), the proofs and the batch and bundle witnesses. Nothing here imports
+are), the proofs (a deferred envelope crosses as JSON, like every other
+envelope; a continuation segment's proof as a machine proof) and the batch
+and bundle witnesses. Nothing here imports
 the reference: proofs are read by duck typing, from any object with the
 reference's attribute names and numpy-valued fields, and witnesses are
 rebuilt field by field as the port's classes of the same names.

@@ -7,10 +7,11 @@ The vk guard, the PI-hash binding, the in-circuit aggregation claims
 digest pinned) and the machine verification are here. The replay is host
 code; the preprocessed commitments it recomputes (vk material, which for a
 wire verifier has millions of rows) are made on `device`: the card unless
-the caller passes `device="cpu"`, as for the prover. Two paths wait, and
-raise `NotImplementedError` before any check so that neither is reported
-as an invalid proof: an envelope with a deferral discharge proof (`host/deferred.py`, ROADMAP
-Queue 1 item 2) and `verify_evm_proof` (the BN254 SNARK wrapper, item 6).
+the caller passes `device="cpu"`, as for the prover. An envelope with a
+deferral discharge proof goes, after the vk guard, to
+`host/deferred.py::verify_deferred` on the same device. `verify_evm_proof`
+(the BN254 SNARK wrapper, ROADMAP Queue 1 item 6) raises
+`NotImplementedError` so that it is not reported as an invalid proof.
 """
 
 from __future__ import annotations
@@ -63,10 +64,6 @@ class UniversalVerifier:
         vk: bytes, proof: StarkProof, stark: Optional[StarkConfig] = None,
         app=None, device=None,
     ) -> bool:
-        if proof.deferral_discharge:
-            raise NotImplementedError(
-                "ROADMAP Queue 1 item 2: verifying a deferral discharge proof "
-                "needs host/deferred.py")
         # commitment guard (verifier.rs:77-80): baseline must carry the
         # expected app vk
         if proof.baseline != vk:
@@ -86,6 +83,12 @@ class UniversalVerifier:
 
     @staticmethod
     def _verify_decoded(proof: StarkProof, stark: StarkConfig, app, device) -> bool:
+        if proof.deferral_discharge:
+            # deferred aggregation: the guest deferred child verification
+            # and the envelope carries a discharge proof
+            from .deferred import verify_deferred
+
+            return verify_deferred(proof, stark, device)
         mproof = serialization.decode_machine_proof(proof.proof)
         airs = app.airs_for_meta(mproof.meta)
         n_app = len(airs)

@@ -13,9 +13,12 @@
   kernels are made of (IMAD, IMAD.WIDE, IMAD.HI, IADD3), each alone and
   IMAD.HI with IADD3 interleaved, timed with `clock64()` on the card (the
   IMAD.WIDE probe folds each product with one LOP3, an ALU op).
+- `kernel_census`: one call under torch.profiler with device activity
+  only: launches and device ms per kernel (the port's, the plain torch
+  kernels, copies), device busy time and the idle share.
 
 Everything here needs the CUDA toolkit (`nvcc`, `cuobjdump`); `pipe_rates`
-also needs a card. Nothing runs at import time.
+and `kernel_census` also need a card. Nothing runs at import time.
 """
 
 from __future__ import annotations
@@ -47,6 +50,55 @@ def short_name(name: str) -> str:
                     f"<{num.group(1) or num.group(2)}>" if num else "")
             return k + flag
     return name
+
+
+def kernel_census(fn) -> dict:
+    """`fn()` under torch.profiler with device activity only (no chrome
+    trace is written): kernel launches and device ms by kind from the raw
+    device records, the union of their intervals as device busy time, and
+    the idle share over the call's host wall-clock."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ours = set(k for ks in ENTRY_KERNELS.values() for k in ks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kind = collections.defaultdict(lambda: [0, 0.0])
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        start, dur = e.start_ns(), e.duration_ns()
+        spans.append((start, start + dur))
+        if name.startswith(("Memcpy", "Memset")):
+            kind = name.split()[0].lower()
+        else:
+            kind = short_name(name)
+            if kind.split("<")[0] not in ours:
+                kind = "plain torch kernels"
+        per_kind[kind][0] += 1
+        per_kind[kind][1] += dur / 1e6
+    spans.sort()
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy_ms = busy / 1e6
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "per_kind": {k: {"launches": n, "ms": ms} for k, (n, ms) in
+                         sorted(per_kind.items(), key=lambda kv: -kv[1][1])}}
 
 
 def sass_functions(path: str) -> dict:

@@ -16,8 +16,8 @@ The parent proof therefore binds an ordered digest of everything the
 guest deferred; the host discharges it with a separate aggregation proof
 over the same children, and the verifier rejects unless the two digests
 match: the binding lives in the public values, sized by trace rows rather
-than a memory carve-out. (The discharge, `host/deferred.py`, is not
-ported yet: ROADMAP Queue 1 item 1.)
+than a memory carve-out. The discharge and that check are
+`host/deferred.py`.
 """
 
 from __future__ import annotations

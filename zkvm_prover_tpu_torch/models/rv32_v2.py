@@ -2028,12 +2028,25 @@ def _stack_rows(rows, width: int) -> np.ndarray:
 
 
 def generate_traces(program_words: List[int], records: np.ndarray,
-                    data_base: int = 0x2000):
+                    data_base: int = 0x2000, init_regs=None, init_ram=None,
+                    init_pc: int = 0, core_only: bool = False):
     """Build all chip traces for a v2 execution from the executor's records.
-    Returns (Air, trace, public_values) triples. (The reference's version
-    also takes a continuation segment's boundary state; the port has no
-    continuations yet: ROADMAP Queue 1 item 3.)"""
+    Returns (Air, trace, public_values) triples.
+
+    A continuation segment (models/rv32_continuations.py) passes its
+    boundary state: `init_regs` (32 register values), `init_ram`
+    ({word_addr: value} of the touched words' values before the segment),
+    `init_pc`, and `core_only=True` to get back `(partial_out, state)`:
+    the instruction chips, the syscall chips, the program ROM and the PV
+    chip only, so that the caller attaches its own boundary AIRs before
+    `finish_tables` emits the byte, xor and range tables."""
     st = _TraceState(data_base)
+    if init_regs is not None:
+        st.last_val[:] = np.asarray(init_regs, dtype=np.int64)
+    if init_ram:
+        for a, v in init_ram.items():
+            st.ram[int(a)] = (0, int(v))
+    st.fin_pc = init_pc
     rows: Dict[str, list] = {name: [] for name, *_ in _CHIPS}
     keccak_rows: list = []
     keccak_states: list = []
@@ -2256,6 +2269,9 @@ def generate_traces(program_words: List[int], records: np.ndarray,
     pv_list = [limb for w in st.pv_words for limb in _limbs(w)]
     pv_flags = [int(c) for c in st.pv_counts]
     out.append((PublicValuesAir(), pv_tr, pv_list + pv_flags))
+
+    if core_only:
+        return out, st
 
     # execution boundary (halted: the SystemAir halt row closed the chain)
     ex_tr = np.zeros((4, ExecBoundaryAirV2.width), dtype=np.uint32)

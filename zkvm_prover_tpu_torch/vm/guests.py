@@ -8,6 +8,9 @@ benchmark guest in the repo's `bench.py`: `bench_guest_program(8, 256)`
 runs 24,729 cycles and yields the 18 AIRs of the rv32 machine proof that
 `chip_smoke.py` times; `bench_guest_program(1, 4)` runs 124 cycles with one
 keccak call and yields the same 18 AIRs at small heights.
+`deferred_agg_program` is the guest of the deferred-aggregation app
+(`host/deferred.py`): it defers each child's verification and reveals
+the keccak of the leaves.
 `ecdsa_verify_program` verifies one secp256k1 ECDSA signature with the
 modular and EC syscalls and then makes every other extension syscall once
 (keccak, sha256, fp2, defer): the guest of `chip_smoke.py`'s ext-guest
@@ -73,6 +76,69 @@ def hash_hints(message: bytes) -> bytes:
     """Hint stream for hash_reveal_program."""
     padded = message + b"\x00" * (-len(message) % 4)
     return len(message).to_bytes(4, "little") + padded
+
+
+def deferred_agg_program() -> List[int]:
+    """The deferred-aggregation guest: for each child proof, read a 64-byte
+    leaf (keccak(child vk) || child pi-hash) from the hint stream, store it
+    to RAM and DEFER its verification (ECALL a7=8); then keccak256 the
+    concatenated leaves and reveal the digest.
+
+    The reference batch/bundle guests' deferred `verify_stark` calls
+    (crates/circuits/batch-circuit/src/main.rs:10-35 with
+    crates/types/circuit/src/lib.rs:147-153): child validity is not proven
+    here. DeferralVmAir's digest binds the ordered leaf list, and the host
+    attaches a discharge proof (host/deferred.py).
+
+    Hint stream layout: word 0 = N children, then N x 16 words of leaf
+    bytes (little-endian).
+    """
+    body = [
+        *asm.hint_read("s1"),            # s1 = N children
+        *asm.li("s3", MSG_BASE),         # leaf cursor
+        *asm.li("s5", 16),               # words per leaf
+        *asm.li("s0", 0),                # i = 0
+        ("label", "outer"),
+        ("branch", asm.beq, "s0", "s1", "done"),
+        *asm.li("s4", 0),                # j = 0
+        ("label", "inner"),
+        ("branch", asm.beq, "s4", "s5", "after"),
+        *asm.hint_read("t0"),
+        asm.slli("t1", "s4", 2),
+        asm.add("t1", "t1", "s3"),
+        asm.sw("t0", "t1", 0),
+        asm.addi("s4", "s4", 1),
+        ("branch", asm.beq, "zero", "zero", "inner"),
+        ("label", "after"),
+        asm.add("a0", "s3", "zero"),     # defer_verify(s3)
+        *asm.li("a7", 8),
+        asm.ecall(),
+        asm.addi("s3", "s3", 64),
+        asm.addi("s0", "s0", 1),
+        ("branch", asm.beq, "zero", "zero", "outer"),
+        ("label", "done"),
+        # keccak256(MSG_BASE, 64*N, OUT_BASE) over the leaf concatenation
+        *asm.li("a0", MSG_BASE),
+        asm.slli("a1", "s1", 6),
+        *asm.li("a2", OUT_BASE),
+        *asm.li("a7", 3),
+        asm.ecall(),
+    ]
+    for i in range(8):
+        body += [
+            *asm.li("t1", OUT_BASE + 4 * i),
+            asm.lw("t0", "t1", 0),
+            *asm.reveal("t0", i),
+        ]
+    body.append(asm.halt(0))
+    return asm.assemble(body)
+
+
+def deferred_agg_hints(leaves: List[bytes]) -> bytes:
+    """Hint stream for deferred_agg_program (64-byte leaves)."""
+    if not all(len(leaf) == 64 for leaf in leaves):
+        raise ValueError("a deferral leaf is 64 bytes")
+    return len(leaves).to_bytes(4, "little") + b"".join(leaves)
 
 
 def bench_guest_program(n_outer=64, n_inner=128) -> List[int]:
