@@ -121,7 +121,23 @@ at a shape some check of the run covered:
      without its halting segment and against a wrong initial root (each
      False); per segment the cycles, AIRs, cells, MemoryMerkleAir and
      Poseidon2Air rows, prove and verify seconds, and the peak;
- 12. the seconds of each phase, the kernels line (JSON; launches summed
+ 12. the SNARK wrapper (BN254 PLONK, KZG commitments on kernel K4): K4's
+     Fq product on a 2^16 batch and a whole MSM of 2^9 points (repeated
+     points, an opposite pair, infinity, zero digits, scalars >= r) against
+     their plain versions on the card and the host engine; then, with the
+     launch counts zeroed just before and read just after, phase 8's
+     bundle Prover `gen_proof_universal(task, with_snark=True)`: its STARK
+     from the prover's disk cache (no STARK launch), the wrapper keys (an
+     SRS of 2^13 powers, `plonk.setup`), the accumulator over the proof
+     bytes, `plonk.prove`, every MSM of eight or more points on K4 (both
+     kernels once per MSM); the split (SRS, setup, accumulator, keccak,
+     prove, K4 device ms and launches) and the seconds;
+     `UniversalVerifier.verify_evm_proof` True, and False for a flipped
+     instance byte, a flipped proof byte and another app's vk; last K4 on
+     the path's own largest MSM (each kernel against its plain version as
+     affine points, the whole against the host engine) and its 2^12 one
+     (against the host engine), with each kernel's ms, plain ms and bound;
+ 13. the seconds of each phase, the kernels line (JSON; launches summed
      over every path, and per path), the card line, and last the result
      line.
 The port imports no JAX; this script imports nothing of the JAX package.
@@ -393,8 +409,9 @@ MACHINE_K3 = ((False, 0, 1, 2), (False, 0, 12, 2), (False, 0, 8, 2),
 
 
 def launch_counts():
-    """Kernel launches by counter (K1's whole transforms are not launches:
-    they are read from `ntt_fused.transforms`)."""
+    """The STARK kernels' launches by counter (K1's whole transforms are not
+    launches: they are read from `ntt_fused.transforms`; K4's are
+    `snark_counts()`)."""
     from zkvm_prover_tpu_torch.ops import mont_matmul as mm
     from zkvm_prover_tpu_torch.ops import ntt_fused
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
@@ -404,10 +421,10 @@ def launch_counts():
 
 def _counters():
     from zkvm_prover_tpu_torch.ops import mont_matmul as mm
-    from zkvm_prover_tpu_torch.ops import ntt_fused
+    from zkvm_prover_tpu_torch.ops import msm, ntt_fused
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
 
-    return ntt_fused.launches, ntt_fused.transforms, p2.launches, mm.launches
+    return ntt_fused.launches, ntt_fused.transforms, p2.launches, mm.launches, msm.launches
 
 
 def reset_counts():
@@ -1114,11 +1131,12 @@ def fibonacci_envelope_cuda_equals_cpu():
 @contextlib.contextmanager
 def timed_calls(owner, name: str, describe=None):
     """Time every call of `owner.name` (a module's function or a class's
-    static method) while the block runs: the list it yields holds each
+    static or class method) while the block runs: the list it yields holds each
     call's seconds, its result where that is a bool, and what
     `describe(args, kwargs)` adds."""
     original = owner.__dict__[name]
-    fn = original.__func__ if isinstance(original, staticmethod) else original
+    kind = type(original) if isinstance(original, (staticmethod, classmethod)) else None
+    fn = original.__func__ if kind else original
     calls = []
 
     def timed(*args, **kwargs):
@@ -1129,7 +1147,7 @@ def timed_calls(owner, name: str, describe=None):
                       **(describe(args, kwargs) if describe else {})})
         return out
 
-    setattr(owner, name, staticmethod(timed) if isinstance(original, staticmethod) else timed)
+    setattr(owner, name, kind(timed) if kind else timed)
     try:
         yield calls
     finally:
@@ -1464,7 +1482,8 @@ def chain_cell(chunks, seed: int) -> dict:
     in-circuit branch), its envelope through `UniversalVerifier` (True) and
     with a flipped PI byte (False); a batch task with a tampered KZG proof
     raises in execute with no launch; a second bundle call answered from
-    the cache."""
+    the cache. Returns (report, bundle generator, bundle task): phase 12
+    wraps that bundle."""
     import torch
 
     from zkvm_prover_tpu_torch.fields import babybear as bb
@@ -1542,7 +1561,7 @@ def chain_cell(chunks, seed: int) -> dict:
         report[f"tampered_kzg_{how.replace(' ', '_')}"] = raised
     report["cached_s"] = answered_from_cache("8", bundles.prover, bundle_task, bundle_env)
     torch.cuda.empty_cache()
-    return report
+    return report, bundles, bundle_task
 
 
 # each fibonacci child of phase 10: log_n 3, not the reference test's 5, for
@@ -1790,6 +1809,323 @@ def continuation_cell(seed: int, unsegmented_pvs) -> dict:
             "chain_pvs_equal_unsegmented": pvs_equal,
             "tampered": {how: {"result": r, "s": t} for how, (r, t) in tampers.items()}}
 
+# K4's bound: one CIOS product of 8-word Fq elements issues 136 IMAD (64
+# lo(a b_i), 64 lo(m q), 8 m) and 128 IMAD.HI, which issue at half the IMAD
+# rate (INT_MULS_PER_S): 392 IMAD slots. Products per point operation as
+# csrc/bn254.cuh forms them.
+MULS_PER_FQ_PRODUCT = 136 + 2 * 128
+FQ_PRODUCTS = {"madd": 11, "add": 16, "dbl": 7}
+K4_SOURCE = "zkvm_prover_tpu_torch/csrc/bn254_msm.cu"
+K4_REPLACES = {"bn254_msm_buckets": "zkvm_prover_tpu/ops/msm.py:171",
+               "bn254_msm_window_sums": "zkvm_prover_tpu/ops/msm.py:261"}
+K4_SMALL_N = 1 << 9           # the whole MSM against its plain version, with edge cases
+
+
+def snark_counts() -> dict:
+    from zkvm_prover_tpu_torch.ops import msm
+
+    return {k: msm.launches[k] for k in K4_REPLACES}
+
+
+def k4_products(dig, points_at_infinity, c: int) -> dict:
+    """Fq products this run's digits need: a madd per point added into a
+    bucket that already holds one; per window the running sums over every
+    bucket slot (an add each for run and acc where a bucket is occupied,
+    acc's add otherwise), the 3S adds and log2(L) doublings of the segment
+    combine."""
+    import torch
+
+    from zkvm_prover_tpu_torch.ops import msm
+
+    W = dig.shape[0]
+    live = (dig != 0) & ~points_at_infinity[None, :]
+    occupied = torch.zeros(W, 1 << c, dtype=torch.bool, device=dig.device)
+    occupied.scatter_(1, torch.where(live, dig, 0), live)
+    occupied[:, 0] = False
+    n_occ = int(occupied.sum())
+    log_s = msm.segment_bits(c)
+    buckets = FQ_PRODUCTS["madd"] * (int(live.sum()) - n_occ)
+    sums = (FQ_PRODUCTS["add"] * (n_occ + W * ((1 << c) + 3 * (1 << log_s)))
+            + FQ_PRODUCTS["dbl"] * W * (c - log_s))
+    return {"bn254_msm_buckets": buckets, "bn254_msm_window_sums": sums}
+
+
+def affine_err(got: list, want: list) -> int:
+    """The largest coordinate difference between two lists of affine points
+    (None at infinity counts as (0, 0))."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} points against {len(want)}")
+    err = 0
+    for a, b in zip(got, want):
+        a, b = a or (0, 0), b or (0, 0)
+        err = max(err, abs(a[0] - b[0]), abs(a[1] - b[1]))
+    return err
+
+
+def k4_check(tag: str, points, scalars, plain: bool) -> dict:
+    """K4 on the card at n = len(points): each step against its plain
+    version on the card (where `plain`; the buckets and window sums
+    compared as affine points, their Jacobian bits being free), the whole
+    MSM against the host engine (`native/bn254`); each step's time per
+    launch (CUDA events), the plain version's and the bound."""
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import bn254_native
+    from zkvm_prover_tpu_torch.ops import msm
+
+    dev = torch.device("cuda")
+    n, c = len(points), msm.window_bits(len(points))
+    t0 = time.perf_counter()
+    pts = msm.words_tensor(msm.affine_words(points), dev)
+    dig = msm.digits(msm.words_tensor(msm.scalar_words(scalars), dev), c)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    buckets = msm.window_buckets(pts, dig, c)
+    sums = msm.window_sums(buckets, c)
+    got = msm.combine_windows(sums, c)
+    t0 = time.perf_counter()
+    want = bn254_native.msm(points, scalars)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = msm.msm_device(points, scalars, dev)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    err_host = affine_err([got, whole], [want, want])
+    products = k4_products(dig, (pts == 0).all(-1), c)
+    row = {"n": n, "c": c, "windows": dig.shape[0], "host_engine_s": host_s, "pack_s": pack_s,
+           "msm_device_s": whole_s, "err_vs_host_engine": err_host, "fq_products": products,
+           "steps": {}}
+    steps = {"bn254_msm_buckets": (lambda: msm.window_buckets(pts, dig, c),
+                                   lambda: msm.window_buckets_plain(pts, dig, c), buckets),
+             "bn254_msm_window_sums": (lambda: msm.window_sums(buckets, c),
+                                       lambda: msm.window_sums_plain(buckets, c), sums)}
+    plain_out = {}
+    for name, (kernel, plain_fn, out) in steps.items():
+        step = {"ms": time_ms(kernel, reps=5)}
+        if plain:
+            t0 = time.perf_counter()
+            plain_out[name] = plain_fn()
+            torch.cuda.synchronize()
+            step["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            step["max_abs_err"] = affine_err(msm.to_affine(out), msm.to_affine(plain_out[name]))
+        b_ms, b_by = bound_ms(0, products[name] * MULS_PER_FQ_PRODUCT)
+        step.update(bound_ms=b_ms, bound_by=b_by)
+        row["steps"][name] = step
+    if plain:  # the plain window sums (of buckets equal to the plain ones) combined
+        row["err_plain_total"] = affine_err(
+            [msm.combine_windows(plain_out["bn254_msm_window_sums"], c)], [want])
+    print(f"[{tag}] K4 at n={n} (c={c}, {dig.shape[0]} windows): vs host engine err="
+          f"{err_host} (host engine {host_s * 1e3:.1f} ms, msm_device {whole_s * 1e3:.1f} ms "
+          f"wall, packing {pack_s * 1e3:.1f} ms)"
+          + "".join(f"; {k} {v['ms']:.4f} ms"
+                    + (f" (plain {v['plain_ms']:.1f} ms, err={v['max_abs_err']})" if plain else "")
+                    + f" bound {v['bound_ms']:.4f} ms" for k, v in row["steps"].items())
+          + (f"; plain whole err={row['err_plain_total']}" if plain else ""), flush=True)
+    if err_host or any(v.get("max_abs_err", 0) for v in row["steps"].values()) or \
+            row.get("err_plain_total", 0):
+        raise AssertionError(f"K4 disagrees at n={n}")
+    return row
+
+
+def k4_edge_case(n: int, seed: int):
+    """n points and scalars with K4's edge cases: points repeated (a run of
+    one point, a pair in one bucket), an opposite pair, infinity; scalars 0,
+    small (zero digits in every upper window), r - 1, r, r + 1 and the rest
+    uniform below 2^256 (mostly >= r)."""
+    import random
+
+    from zkvm_prover_tpu_torch.fields import bn254 as bn
+
+    rng = random.Random(seed)
+    p = bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R))
+    step = bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R))
+    points = []
+    for _ in range(n):
+        points.append(p)
+        p = bn.g1_add(p, step)
+    scalars = [rng.randrange(1 << 256) for _ in range(n)]
+    points[8:40] = [points[8]] * 32
+    scalars[8:40] = [scalars[8]] * 32
+    points[3] = points[4]
+    points[5] = None
+    points[6] = bn.g1_neg(points[7])
+    scalars[6] = scalars[7]
+    scalars[:5] = [0, 5, bn.R - 1, bn.R, bn.R + 1]
+    return points, scalars
+
+
+def fq_check(seed: int) -> dict:
+    """K4's Fq core alone (`bn254_fq_mul`) on a 2^16 batch against the
+    plain Fq product on the card (`ops/bigint.py`), edge values included."""
+    import numpy as np
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import bn254 as bn
+    from zkvm_prover_tpu_torch.ops import bigint, msm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 1 << 16
+    # residues below q: the top word drawn below q's top word
+    a, b = (torch.randint(-(1 << 31), 1 << 31, (n, 8), generator=gen, dtype=torch.int32,
+                          device=dev) for _ in range(2))
+    top = bn.Q >> 224
+    a[:, 7] = torch.randint(0, top, (n,), generator=gen, device=dev).to(torch.int32)
+    b[:, 7] = torch.randint(0, top, (n,), generator=gen, device=dev).to(torch.int32)
+    edges = msm.words_tensor(np.frombuffer(b"".join(
+        x.to_bytes(32, "little") for x in (0, 1, bn.Q - 1, bn.Q - 2, (1 << 256) % bn.Q)),
+        dtype=np.uint32), dev).reshape(5, 8)
+    a[:5], b[:5], b[5:10] = edges, edges.flip(0), edges
+    ms = time_ms(lambda: msm.fq_mul(a, b), reps=10)
+    got = msm.fq_mul(a, b)
+    t0 = time.perf_counter()
+    want = bigint.to_words(bigint.BN254_FQ.mul(bigint.from_words(a), bigint.from_words(b)))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_err(got, want)
+    b_ms, b_by = bound_ms(3 * n * 32, n * MULS_PER_FQ_PRODUCT)
+    print(f"[12] K4 Fq product (bn254_fq_mul) on ({n}, 8) words: err={err} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.1f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    if err:
+        raise AssertionError("K4's Fq product disagrees with the plain version")
+    return {"n": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+@contextlib.contextmanager
+def device_timed(owner, name: str):
+    """The device ms (CUDA events, synchronised) of every call of
+    `owner.name` while the block runs."""
+    import torch
+
+    original = getattr(owner, name)
+    times = []
+
+    def timed(*args, **kwargs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(*args, **kwargs)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield times
+    finally:
+        setattr(owner, name, original)
+
+
+def flipped(raw: bytes, at: int) -> bytes:
+    return raw[:at] + bytes([raw[at] ^ 1]) + raw[at + 1:]
+
+
+def snark_cell(bundles, bundle_task, seed: int) -> dict:
+    """Phase 12: the SNARK wrapper over phase 8's bundle. K4's Fq core on a
+    2^16 batch and a whole MSM of 2^9 points with its edge cases against
+    their plain versions; then, with the launch counts zeroed just before,
+    the bundle Prover's `gen_proof_universal(task, with_snark=True)`: the
+    STARK from its disk cache (no STARK launch), the wrapper keys (SRS,
+    `plonk.setup`), the accumulator, `plonk.prove`, every MSM of eight or
+    more points on K4; the split printed. `UniversalVerifier.verify_evm_proof`
+    True, and False for a flipped instance byte, a flipped blob byte and
+    another app's vk. Last, K4 at the path's largest MSM and at 2^12, on the
+    path's own inputs, against the plain version and the host engine."""
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import bn254 as bn
+    from zkvm_prover_tpu_torch.host import EvmProof, UniversalVerifier
+    from zkvm_prover_tpu_torch.ops import msm
+    from zkvm_prover_tpu_torch.snark import plonk, wrapper
+
+    report = {"fq_mul": fq_check(seed)}
+    report["msm_edge_cases"] = k4_check("12", *k4_edge_case(K4_SMALL_N, seed), plain=True)
+
+    prover = bundles.prover
+    if prover.cache_dir is None or prover._cache_path(bundle_task) is None \
+            or not prover._cache_path(bundle_task).exists():
+        raise AssertionError("the bundle proof is not in the prover's disk cache")
+    inputs = {}
+
+    def keep_inputs(args, kwargs):
+        points, scalars = args[0], args[1]
+        inputs.setdefault(len(points), (list(points), list(scalars)))
+        return {"n": len(points)}
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        srs_calls, setup_calls, acc_calls, keccak_calls, transcript_calls, prove_calls, \
+            msm_calls = (stack.enter_context(timed_calls(*a)) for a in (
+                (bn.KzgSrs, "generate_insecure"), (plonk, "setup"), (wrapper, "_accumulator"),
+                (wrapper, "keccak256"), (plonk, "keccak256"), (plonk, "prove"),
+                (msm, "msm_device", keep_inputs)))
+        k4_ms = [stack.enter_context(device_timed(msm, f)) for f in ("window_buckets",
+                                                                      "window_sums")]
+        t0 = time.perf_counter()
+        ep = prover.gen_proof_universal(bundle_task, with_snark=True)
+        torch.cuda.synchronize()
+        wrap_s = time.perf_counter() - t0
+    stark_launches = sum(launch_counts().values())
+    counts = snark_counts()
+    n_msm = len(msm_calls)
+    print(f"[12] {prover.app.name} gen_proof_universal(with_snark=True) {wrap_s:.3f} s: SRS "
+          f"{sum(c['s'] for c in srs_calls):.3f} s, plonk.setup "
+          f"{sum(c['s'] for c in setup_calls):.3f} s, accumulator "
+          f"{sum(c['s'] for c in acc_calls):.3f} s (wrapper keccak "
+          f"{sum(c['s'] for c in keccak_calls):.3f} s over {len(keccak_calls)} calls), "
+          f"plonk.prove {sum(c['s'] for c in prove_calls):.3f} s (transcript keccak "
+          f"{sum(c['s'] for c in transcript_calls):.3f} s); {n_msm} MSMs "
+          f"({sorted(set(c['n'] for c in msm_calls))} points) in "
+          f"{sum(c['s'] for c in msm_calls):.3f} s wall, K4 device "
+          f"{sum(k4_ms[0]):.3f} + {sum(k4_ms[1]):.3f} ms; launches {counts}, STARK kernel "
+          f"launches {stark_launches}", flush=True)
+    if stark_launches or any(v != n_msm for v in counts.values()) or not n_msm:
+        raise AssertionError("the wrap did not take its STARK from the cache, or an MSM "
+                             "missed K4")
+    report.update(
+        wrap_s=wrap_s, srs_s=sum(c["s"] for c in srs_calls),
+        setup_s=sum(c["s"] for c in setup_calls), accumulator_s=sum(c["s"] for c in acc_calls),
+        wrapper_keccak_s=sum(c["s"] for c in keccak_calls),
+        transcript_keccak_s=sum(c["s"] for c in transcript_calls),
+        prove_s=sum(c["s"] for c in prove_calls), msm_sizes=[c["n"] for c in msm_calls],
+        msm_wall_s=sum(c["s"] for c in msm_calls), k4_buckets_device_ms=sum(k4_ms[0]),
+        k4_window_sums_device_ms=sum(k4_ms[1]), launches=counts,
+        proof_bytes=len(ep.proof), instance_bytes=len(ep.instances))
+
+    cfg = prover.config.stark
+    verifier = UniversalVerifier(prover.app.name, cfg)
+    carried = EvmProof.from_dict(json.loads(json.dumps(ep.to_dict())))
+    with timed_calls(msm, "msm_device") as verify_msms:
+        t0 = time.perf_counter()
+        ok = verifier.verify_evm_proof(carried)
+        verify_s = time.perf_counter() - t0
+    pi_at = (wrapper.N_ACC + wrapper.N_DIGEST) * 32 + 31
+    tampers = {
+        "instance byte": verifier.verify_evm_proof(
+            EvmProof(proof=ep.proof, instances=flipped(ep.instances, pi_at))),
+        "blob byte": verifier.verify_evm_proof(  # the low byte of the first evaluation
+            EvmProof(proof=flipped(ep.proof, 9 * 64 + 31), instances=ep.instances)),
+        "another app's vk": UniversalVerifier(
+            "batch" if prover.app.name != "batch" else "bundle", cfg).verify_evm_proof(carried),
+    }
+    print(f"[12] UniversalVerifier.verify_evm_proof: {ok} in {verify_s:.3f} s "
+          f"({len(verify_msms)} MSM on K4); tampered: {tampers}", flush=True)
+    if not ok or any(tampers.values()):
+        raise AssertionError("EvmProof verification phase failed")
+    report.update(verify_s=verify_s, tampered=tampers)
+
+    # K4 on the path's own inputs: its largest MSM with the plain version
+    # too, and 2^12 against the host engine
+    largest = max(inputs)
+    report["msm_path"] = [k4_check("12", *inputs[largest], plain=True)]
+    if 1 << 12 in inputs and largest != 1 << 12:
+        report["msm_path"].append(k4_check("12", *inputs[1 << 12], plain=False))
+    torch.cuda.empty_cache()
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=18,
@@ -1982,7 +2318,7 @@ def main() -> int:
     phase_done(7)
 
     # 8. the batch and bundle layers over chunk 0
-    report["chain"] = chain_cell(chunks, args.seed + 5)
+    report["chain"], bundles, bundle_task = chain_cell(chunks, args.seed + 5)
     phase_done(8)
 
     # 9. the ext guest: ECDSA verify and every other extension syscall
@@ -1997,9 +2333,14 @@ def main() -> int:
     report["continuations"] = continuation_cell(args.seed + 8, report["rv32"]["public_values"])
     phase_done(11)
 
-    # 12. the kernels line: per kernel, its largest main-path shape; launches
-    # summed over the nine paths (single-AIR proof, machine cell, rv32,
-    # chunk, batch, bundle, ext guest, deferred aggregation, continuations)
+    # 12. the SNARK wrapper over phase 8's bundle
+    report["snark"] = snark_cell(bundles, bundle_task, args.seed + 9)
+    phase_done(12)
+
+    # 13. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the nine STARK paths (single-AIR proof, machine cell, rv32,
+    # chunk, batch, bundle, ext guest, deferred aggregation, continuations),
+    # then K4's two kernels, which only the SNARK path launches
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -2017,15 +2358,28 @@ def main() -> int:
                    "bundle": report["chain"]["bundle"]["launches"][row["counter"]],
                    "ecdsa": report["ecdsa"]["launches"][row["counter"]],
                    "deferred": report["deferred"]["launches"][row["counter"]],
-                   "continuations": report["continuations"]["launches"][row["counter"]]}
+                   "continuations": report["continuations"]["launches"][row["counter"]],
+                   "snark": 0}
         entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                      bound_by=row["bound_by"], library_ms=None,
                      shape=row["shape"], bytes=row["bytes"])
         line.append(entry)
+    path = report["snark"]["msm_path"][0]
+    for name, step in path["steps"].items():
+        launched = report["snark"]["launches"][name]
+        line.append({"name": name, "route": "cuda", "source": K4_SOURCE,
+                     "replaces": K4_REPLACES[name], "launches": launched,
+                     "launches_by_path": {"snark": launched},
+                     "max_abs_err": max(step["max_abs_err"], report["snark"]["msm_edge_cases"][
+                         "steps"][name]["max_abs_err"]),
+                     "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+                     "bound_by": step["bound_by"], "library_ms": None,
+                     "shape": f"n={path['n']} c={path['c']} W={path['windows']}",
+                     "fq_products": path["fq_products"][name]})
     report["total_s"] = time.perf_counter() - t_all
-    print(f"[12] seconds by phase: "
+    print(f"[13] seconds by phase: "
           + ", ".join(f"{n}: {t:.1f}" for n, t in report["phase_s"].items())
           + f"; total {report['total_s']:.1f} s", flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -419,10 +419,26 @@ def test_in_circuit_aggregation_raises(proven):
     assert verifier.verify_stark_proof(carried) is False
 
 
-def test_with_snark_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        _prover("port", "fibonacci").gen_proof_universal(
-            _task("port", "fibonacci"), with_snark=True)
+def test_with_snark_raises(monkeypatch, tmp_path):
+    """`with_snark=True` goes through `gen_proof_snark`: the STARK envelope
+    (proved and self-verified first) and the Prover's device reach the BN254
+    wrapper, here a stand-in that raises with what it was given (the
+    wrapper itself is held to the reference in tests/test_torch_snark.py)."""
+    from zkvm_prover_tpu_torch.snark import wrapper
+
+    class Reached(Exception):
+        pass
+
+    def stand_in(app_vk, proof_bytes, pi_hash, keys=None, device=None):
+        raise Reached(app_vk, proof_bytes, pi_hash, device)
+
+    monkeypatch.setattr(wrapper, "wrap_stark_proof", stand_in)
+    prover = _prover("port", "fibonacci", cache_dir=str(tmp_path))
+    task = _task("port", "fibonacci")
+    with pytest.raises(Reached) as hit:
+        prover.gen_proof_universal(task, with_snark=True)
+    env = prover.gen_proof_stark(task)  # from the cache the first call filled
+    assert hit.value.args == (prover.get_app_vk(), env.proof, env.user_pvs_proof, "cpu")
 
 
 def test_chunk_witness_with_block_witnesses_raises(chunks):
@@ -440,11 +456,12 @@ def test_chunk_witness_with_block_witnesses_raises(chunks):
 
 @pytest.mark.parametrize("what", ["agg_children", "deferral_discharge", "evm_proof"])
 def test_unported_verifier_paths_raise(proven, what):
-    """The EvmProof path still raises. A forged `AggChildRecord` on an
-    envelope that aggregates nothing gives False, and so does a fibonacci
-    envelope given a deferral discharge: it passes the fibonacci vk guard
-    and goes to `verify_deferred`, which wants the deferred-agg vk (the
-    name is the one the test had while that path raised)."""
+    """A malformed EvmProof gives False (before any key is built). A forged
+    `AggChildRecord` on an envelope that aggregates nothing gives False,
+    and so does a fibonacci envelope given a deferral discharge: it passes
+    the fibonacci vk guard and goes to `verify_deferred`, which wants the
+    deferred-agg vk (the name is the one the test had while these paths
+    raised)."""
     env = _carried("port", proven["fibonacci", "port"][2])
     v = UniversalVerifier("fibonacci", fast_test_config(), device="cpu")
     if what == "agg_children":
@@ -456,8 +473,8 @@ def test_unported_verifier_paths_raise(proven, what):
         ref_env = _carried("reference", env)
         assert RefVerifier("fibonacci", ref_fast_config()).verify_stark_proof(ref_env) is False
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            v.verify_evm_proof(EvmProof(proof=b"\x00", instances=b"\x00" * 32))
+        bad = EvmProof(proof=b"\x00", instances=b"\x00" * 32)
+        assert v.verify_evm_proof(bad) is False
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +499,9 @@ import zkvm_prover_tpu_torch.models.fp2_vm, zkvm_prover_tpu_torch.models.sha256_
 import zkvm_prover_tpu_torch.models.sha256_vm, zkvm_prover_tpu_torch.models.deferral_vm
 import zkvm_prover_tpu_torch.vm.guests, zkvm_prover_tpu_torch.host.deferred
 import zkvm_prover_tpu_torch.models.rv32_continuations
+import zkvm_prover_tpu_torch.snark.wrapper, zkvm_prover_tpu_torch.snark.verifier_contract
+import zkvm_prover_tpu_torch.snark.evm, zkvm_prover_tpu_torch.ops.msm
+import zkvm_prover_tpu_torch.fields.bn254_native
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "cryptography", "zkvm_prover_tpu")]
 print("clean")
 """

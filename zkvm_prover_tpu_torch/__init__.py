@@ -6,9 +6,11 @@ Montgomery form, stored as canonical values in [0, p) in `torch.int32`
 tensors, so every tensor is bit-identical to the reference's `uint32` arrays.
 
 Layout (the reference's module names, PyTorch inside):
-  fields/    BabyBear and its quartic extension (plain torch arithmetic)
-  ops/       NTT / coset LDE, Poseidon2, exact base-by-ext products; each
-             hand-written CUDA kernel sits beside its plain torch version
+  fields/    BabyBear and its quartic extension (plain torch arithmetic);
+             BN254 with its pairing and KZG, and BLS12-381 (host ints)
+  ops/       NTT / coset LDE, Poseidon2, exact base-by-ext products, the
+             BN254 Fq field and MSM; each hand-written CUDA kernel sits
+             beside its plain torch version
   csrc/      the CUDA C++ sources (sm_90a), built by `_build.py`
   stark/     config, Merkle commitments, challenger, FRI, prover, verifier,
              the multi-AIR machine prover and verifier
@@ -21,14 +23,17 @@ Layout (the reference's module names, PyTorch inside):
   types/, circuits/, integration/
              Scroll public-input types, the chunk circuit, the chunk task
              generator
+  snark/     the BN254 PLONK wrapper: the EvmProof, its verifier bytecode and
+             the mini-EVM that runs it (host ints; MSMs on the card)
   utils/     python-int extension arithmetic for the host verifier
   convert.py state carried across from the reference (constants, proofs)
 
 Device rule: a kernel wrapper runs its plain version only for a CPU tensor;
 for a CUDA tensor it launches the kernel or raises. The provers and the
 verifiers (`stark.prover.prove`, `stark.machine.prove_machine` and
-`verify_machine`, `host.Prover`, `host.UniversalVerifier`) run on the card
-unless the caller passes `device="cpu"`.
+`verify_machine`, `host.Prover`, `host.UniversalVerifier`) and the BN254
+MSM (`fields.bn254.msm_jac`, and through it the SNARK wrapper) run on the
+card unless the caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"

@@ -37,6 +37,9 @@ SIGNATURES = {
     "p2_compress": [_P, _L, _I, _P, _P],
     "mont_matmul_rows": [_P, _P, _L, _I, _I, _P, _P],
     "mont_matmul_cols": [_P, _P, _L, _I, _I, _L, _P, _P, _P],
+    "bn254_msm_buckets": [_P, _P, _P, _L, _I, _I, _P, _P],
+    "bn254_msm_window_sums": [_P, _I, _I, _I, _P, _P],
+    "bn254_fq_mul": [_P, _P, _L, _P, _P],
 }
 
 _LIB = None

@@ -3,8 +3,10 @@
 The system has no weights. What crosses between the two packages is the
 Poseidon2 round-constant tables, the traces (plain numpy, shared as they
 are), the proofs (a deferred envelope crosses as JSON, like every other
-envelope; a continuation segment's proof as a machine proof) and the batch
-and bundle witnesses. Nothing here imports
+envelope; a continuation segment's proof as a machine proof), the batch
+and bundle witnesses, and the SNARK wrapper's SRS, PLONK keys and
+EvmProofs (python ints and bytes, so one reference key build serves both
+packages' tests). Nothing here imports
 the reference: proofs are read by duck typing, from any object with the
 reference's attribute names and numpy-valued fields, and witnesses are
 rebuilt field by field as the port's classes of the same names.
@@ -157,3 +159,46 @@ def witness_from_reference(obj):
     """A reference witness object (a batch or bundle witness, or anything
     made of the witness dataclasses and enums) as the port's classes."""
     return rebuild(obj, witness_classes())
+
+
+def srs_from_reference(srs):
+    """The port's KzgSrs from a reference-shaped one (G1 powers and
+    [tau]G2 as python ints)."""
+    from .fields import bn254 as bn
+
+    return bn.KzgSrs(list(srs.g1_powers), srs.tau_g2)
+
+
+def plonk_vk_from_reference(vk):
+    from .snark import plonk
+
+    return plonk.PlonkVk(log_n=int(vk.log_n), n_public=int(vk.n_public),
+                         q_comms=list(vk.q_comms), sigma_comms=list(vk.sigma_comms),
+                         tau_g2=vk.tau_g2)
+
+
+def plonk_pk_from_reference(pk, srs):
+    """The port's PlonkPk from a reference-shaped one, on `srs`, the port's
+    copy of the SRS it was made on."""
+    from .snark import plonk
+
+    return plonk.PlonkPk(vk=plonk_vk_from_reference(pk.vk),
+                         q_polys=[list(p) for p in pk.q_polys],
+                         sigma_polys=[list(p) for p in pk.sigma_polys],
+                         sigma_maps=[list(m) for m in pk.sigma_maps],
+                         srs=srs)
+
+
+def wrapper_keys_from_reference(keys):
+    """The port's WrapperKeys from the reference's (its SRS converted once,
+    shared by the proving key)."""
+    from .snark import wrapper
+
+    srs = srs_from_reference(keys.srs)
+    return wrapper.WrapperKeys(pk=plonk_pk_from_reference(keys.pk, srs), srs=srs)
+
+
+def evm_proof_from_reference(proof):
+    from .host.proof_types import EvmProof
+
+    return EvmProof(proof=bytes(proof.proof), instances=bytes(proof.instances))

@@ -7,10 +7,9 @@ crates/prover/src/prover/mod.rs:68-433): the reference's
   (crates/integration/src/lib.rs:518-586 caching semantics).
 
 The proof runs on the card unless `ProverConfig.device` names another
-device; so do the preprocessed commitments of in-circuit child verifiers.
-The wire program and the self-verify's replay are host code. Waiting, and
-raising `NotImplementedError` where reached: `gen_proof_snark` (`snark/`,
-ROADMAP Queue 1 item 6).
+device; so do the preprocessed commitments of in-circuit child verifiers
+and the SNARK wrapper's KZG commitments (`gen_proof_snark`). The wire
+program, the self-verify's replay and the PLONK prover are host code.
 """
 
 from __future__ import annotations
@@ -176,6 +175,14 @@ class Prover:
         return envelope
 
     def gen_proof_snark(self, task: ProvingTask):
-        raise NotImplementedError(
-            "ROADMAP Queue 1 item 6: gen_proof_snark needs snark/ "
-            "(the BN254 PLONK wrapper)")
+        """STARK proof -> EvmProof through the BN254 PLONK wrapper
+        (gen_proof_snark analog, crates/prover/src/prover/mod.rs:419-432).
+        The root STARK is produced and self-verified first (or read from the
+        proof cache); the wrapper binds (vk, PI hash, proof bytes) into the
+        on-chain instance layout (see snark/wrapper.py for the in-circuit
+        statement), its commitments on the Prover's device."""
+        from ..snark import wrapper as snark_wrapper
+
+        stark = self.gen_proof_stark(task)
+        return snark_wrapper.wrap_stark_proof(
+            self.get_app_vk(), stark.proof, stark.user_pvs_proof, device=self.config.device)

@@ -10,8 +10,7 @@ wire verifier has millions of rows) are made on `device`: the card unless
 the caller passes `device="cpu"`, as for the prover. An envelope with a
 deferral discharge proof goes, after the vk guard, to
 `host/deferred.py::verify_deferred` on the same device. `verify_evm_proof`
-(the BN254 SNARK wrapper, ROADMAP Queue 1 item 6) raises
-`NotImplementedError` so that it is not reported as an invalid proof.
+checks the BN254 SNARK wrapper's EvmProof, its MSMs on the same device.
 """
 
 from __future__ import annotations
@@ -132,9 +131,13 @@ class UniversalVerifier:
         return machine.verify_machine(airs, mproof, stark, device=device)
 
     def verify_evm_proof(self, proof: EvmProof) -> bool:
-        raise NotImplementedError(
-            "ROADMAP Queue 1 item 6: verifying an EvmProof needs snark/ "
-            "(the BN254 PLONK wrapper)")
+        """EvmProof verification (verify_evm_proof analog,
+        crates/verifier/src/evm.rs:38-43): PLONK verify (host + generated
+        EVM bytecode under the mini-EVM simulator), instance/vk binding,
+        and the deferred KZG accumulator pairing."""
+        from ..snark import wrapper as snark_wrapper
+
+        return snark_wrapper.verify_evm_proof(self.app.vk_bytes(), proof, device=self.device)
 
     def dump_vk(self, assets_dir: str) -> None:
         Path(assets_dir).mkdir(parents=True, exist_ok=True)

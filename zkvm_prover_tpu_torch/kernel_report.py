@@ -36,7 +36,11 @@ ENTRY_KERNELS = {
     "p2_permute": ["permute_kernel"], "p2_hash_rows": ["hash_rows_kernel"],
     "p2_compress": ["compress_kernel"], "mont_matmul_rows": ["mm_rows_kernel"],
     "mont_matmul_cols": ["mm_cols_kernel", "mm_cols_finish"],
+    "bn254_msm_buckets": ["msm_buckets_kernel"],
+    "bn254_msm_window_sums": ["msm_window_sums_kernel"], "bn254_fq_mul": ["fq_mul_kernel"],
 }
+# the entries of K4, which only the SNARK wrapper's commitments launch
+SNARK_ENTRIES = ("bn254_msm_buckets", "bn254_msm_window_sums", "bn254_fq_mul")
 
 
 def short_name(name: str) -> str:
