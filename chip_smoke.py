@@ -122,21 +122,27 @@ at a shape some check of the run covered:
      False); per segment the cycles, AIRs, cells, MemoryMerkleAir and
      Poseidon2Air rows, prove and verify seconds, and the peak;
  12. the SNARK wrapper (BN254 PLONK, KZG commitments on kernel K4): K4's
-     Fq product on a 2^16 batch and a whole MSM of 2^9 points (repeated
-     points, an opposite pair, infinity, zero digits, scalars >= r) against
-     their plain versions on the card and the host engine; then, with the
-     launch counts zeroed just before and read just after, phase 8's
-     bundle Prover `gen_proof_universal(task, with_snark=True)`: its STARK
-     from the prover's disk cache (no STARK launch), the wrapper keys (an
-     SRS of 2^13 powers, `plonk.setup`), the accumulator over the proof
-     bytes, `plonk.prove`, every MSM of eight or more points on K4 (both
-     kernels once per MSM); the split (SRS, setup, accumulator, keccak,
-     prove, K4 device ms and launches) and the seconds;
+     Fq product on 2^20 words (and its rate) and a whole MSM of 2^9 points
+     (a run of one point longer than a chunk, opposite pairs across chunk
+     edges, infinity, zero digits, scalars >= r) against their plain
+     versions on the card and the host engine; then, with the launch
+     counts zeroed just before and read just after, phase 8's bundle
+     Prover `gen_proof_universal(task, with_snark=True)`: its STARK from
+     the prover's disk cache (no STARK launch), the wrapper keys (an SRS
+     of 2^13 powers, `plonk.setup`), the accumulator over the proof bytes,
+     `plonk.prove`, every MSM of eight or more points on K4 (the chunk and
+     window-sum entries once per MSM, the reduction once a level); the
+     split (SRS, setup, accumulator, keccak, prove, K4 device ms and
+     launches) and the seconds; every MSM of the wrap against the host
+     engine with its n, c, occupied buckets, longest run per window, host
+     ms (pack, digits and sort, combine) and device ms per K4 entry;
      `UniversalVerifier.verify_evm_proof` True, and False for a flipped
      instance byte, a flipped proof byte and another app's vk; last K4 on
-     the path's own largest MSM (each kernel against its plain version as
-     affine points, the whole against the host engine) and its 2^12 one
-     (against the host engine), with each kernel's ms, plain ms and bound;
+     the path's largest and its most skewed MSM (each entry against its
+     plain version as affine points, level by level, the bucket step
+     against the reference's combine, the whole against the host engine),
+     with each entry's ms, plain ms and bound, and uniform scalars on the
+     path's points at each size beside the wrap's MSMs;
  13. the seconds of each phase, the kernels line (JSON; launches summed
      over every path, and per path), the card line, and last the result
      line.
@@ -1816,9 +1822,11 @@ def continuation_cell(seed: int, unsegmented_pvs) -> dict:
 MULS_PER_FQ_PRODUCT = 136 + 2 * 128
 FQ_PRODUCTS = {"madd": 11, "add": 16, "dbl": 7}
 K4_SOURCE = "zkvm_prover_tpu_torch/csrc/bn254_msm.cu"
-K4_REPLACES = {"bn254_msm_buckets": "zkvm_prover_tpu/ops/msm.py:171",
+K4_REPLACES = {"bn254_msm_chunks": "zkvm_prover_tpu/ops/msm.py:171",
+               "bn254_msm_reduce": "zkvm_prover_tpu/ops/msm.py:171",
                "bn254_msm_window_sums": "zkvm_prover_tpu/ops/msm.py:261"}
 K4_SMALL_N = 1 << 9           # the whole MSM against its plain version, with edge cases
+K4_SKEW_LIMIT = 3.0           # a wrap MSM's bucket kernels against a uniform one at its size
 
 
 def snark_counts() -> dict:
@@ -1827,15 +1835,18 @@ def snark_counts() -> dict:
     return {k: msm.launches[k] for k in K4_REPLACES}
 
 
-def k4_products(dig, points_at_infinity, c: int) -> dict:
-    """Fq products this run's digits need: a madd per point added into a
-    bucket that already holds one; per window the running sums over every
-    bucket slot (an add each for run and acc where a bucket is occupied,
-    acc's add otherwise), the 3S adds and log2(L) doublings of the segment
-    combine."""
+def k4_products(dig, points_at_infinity, c: int, plan=None) -> dict:
+    """Fq products this run's digits need, counted as K4's first version
+    counted them whatever split the kernels use: the bucket step a madd
+    per point added into a bucket that already holds one; the window sums
+    per window the running sums over every bucket slot (an add each for
+    run and acc where a bucket is occupied, acc's add otherwise), and the
+    3S adds and log2(L) doublings of a combine of S = 2^min(8, c/2)
+    segments. With a plan, the bucket step's count is shared between its
+    kernels by the additions each makes: the chunks' (a point into a run
+    that holds one), the reduction's (one per run beyond a bucket's
+    first); the reduction's full adds and the pieces' slots are overhead."""
     import torch
-
-    from zkvm_prover_tpu_torch.ops import msm
 
     W = dig.shape[0]
     live = (dig != 0) & ~points_at_infinity[None, :]
@@ -1843,11 +1854,19 @@ def k4_products(dig, points_at_infinity, c: int) -> dict:
     occupied.scatter_(1, torch.where(live, dig, 0), live)
     occupied[:, 0] = False
     n_occ = int(occupied.sum())
-    log_s = msm.segment_bits(c)
-    buckets = FQ_PRODUCTS["madd"] * (int(live.sum()) - n_occ)
-    sums = (FQ_PRODUCTS["add"] * (n_occ + W * ((1 << c) + 3 * (1 << log_s)))
-            + FQ_PRODUCTS["dbl"] * W * (c - log_s))
-    return {"bn254_msm_buckets": buckets, "bn254_msm_window_sums": sums}
+    log_s = min(8, c // 2)
+    out = {"bucket_step": FQ_PRODUCTS["madd"] * (int(live.sum()) - n_occ),
+           "bn254_msm_window_sums": (
+               FQ_PRODUCTS["add"] * (n_occ + W * ((1 << c) + 3 * (1 << log_s)))
+               + FQ_PRODUCTS["dbl"] * W * (c - log_s))}
+    if plan is not None:
+        key = plan.key
+        group = torch.arange(key.shape[0], device=key.device) // plan.m
+        runs = int(key.shape[0] > 0) + int(((key[1:] != key[:-1])
+                                            | (group[1:] != group[:-1])).sum())
+        out["bn254_msm_chunks"] = FQ_PRODUCTS["madd"] * (key.shape[0] - runs)
+        out["bn254_msm_reduce"] = FQ_PRODUCTS["madd"] * (runs - n_occ)
+    return out
 
 
 def affine_err(got: list, want: list) -> int:
@@ -1862,76 +1881,236 @@ def affine_err(got: list, want: list) -> int:
     return err
 
 
-def k4_check(tag: str, points, scalars, plain: bool) -> dict:
-    """K4 on the card at n = len(points): each step against its plain
-    version on the card (where `plain`; the buckets and window sums
-    compared as affine points, their Jacobian bits being free), the whole
-    MSM against the host engine (`native/bn254`); each step's time per
-    launch (CUDA events), the plain version's and the bound."""
+def point_err(a, b) -> int:
+    """Two (..., 24) arrays of Jacobian Montgomery words as affine points:
+    X1 Z2^2 = X2 Z1^2 and Y1 Z2^3 = Y2 Z1^3 (or both at infinity) on the
+    device with the plain Fq product, then `affine_err` (`msm.to_affine`)
+    over the points that differ, so 0 when all agree."""
     import torch
 
+    from zkvm_prover_tpu_torch.ops import msm
+    from zkvm_prover_tpu_torch.ops.bigint import BN254_FQ as F
+
+    a, b = a.reshape(-1, 24), b.reshape(-1, 24)
+    if a.shape != b.shape:
+        raise AssertionError(f"{tuple(a.shape)} points against {tuple(b.shape)}")
+    if a.shape[0] == 0:
+        return 0
+    (X1, Y1, Z1), (X2, Y2, Z2) = msm._jacobian(a), msm._jacobian(b)
+    inf1, inf2 = F.is_zero(Z1), F.is_zero(Z2)
+    Z1s, Z2s = F.square(Z1), F.square(Z2)
+    same = (F.eq(F.mul(X1, Z2s), F.mul(X2, Z1s))
+            & F.eq(F.mul(Y1, F.mul(Z2s, Z2)), F.mul(Y2, F.mul(Z1s, Z1))))
+    ok = (inf1 & inf2) | (~inf1 & ~inf2 & same)
+    bad = (~ok).nonzero().squeeze(1)
+    if not bad.numel():
+        return 0
+    return max(1, affine_err(msm.to_affine(a[bad]), msm.to_affine(b[bad])))
+
+
+def k4_launches(pts, plan, stages, buckets, c: int) -> dict:
+    """Each K4 entry's C call on these inputs with its outputs allocated
+    beforehand (scratch buckets; every reduction level of `stages` in
+    turn), for `time_ms`: back-to-back launches keep the host's torch calls
+    out of the device time. Not counted in `msm.launches`."""
+    import torch
+
+    from zkvm_prover_tpu_torch import _build
+    from zkvm_prover_tpu_torch.ops import msm
+
+    lib, stream = _build.lib(), _build.stream(pts.device)
+    scratch = torch.zeros_like(buckets)
+    pieces = torch.empty_like(stages[0][4])
+    levels = [(p_in, k_in, torch.empty_like(out), torch.empty_like(k_out))
+              for _, (p_in, k_in, _), k_out, _, out in stages[1:]]
+    sums = torch.empty((buckets.shape[0], 24), dtype=torch.int32, device=pts.device)
+
+    def chunks():
+        _build.check(lib.bn254_msm_chunks(
+            pts.data_ptr(), plan.idx.data_ptr(), plan.key.data_ptr(), plan.key.shape[0], plan.m,
+            plan.piece_key.data_ptr(), pieces.data_ptr(), scratch.data_ptr(), stream),
+            "bn254_msm_chunks")
+
+    def reduce():
+        for p_in, k_in, out, k_out in levels:
+            _build.check(lib.bn254_msm_reduce(
+                p_in.data_ptr(), k_in.data_ptr(), k_in.shape[0], out.data_ptr(),
+                k_out.data_ptr(), scratch.data_ptr(), stream), "bn254_msm_reduce")
+
+    def window_sums():
+        _build.check(lib.bn254_msm_window_sums(
+            buckets.data_ptr(), buckets.shape[0], c, msm.sum_bits(c), sums.data_ptr(), stream),
+            "bn254_msm_window_sums")
+
+    return {"bn254_msm_chunks": chunks, "bn254_msm_reduce": reduce,
+            "bn254_msm_window_sums": window_sums}
+
+
+def synced_s(fn):
+    """fn() and its host seconds up to a device synchronise."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def k4_shape(points, scalars) -> dict:
+    """An MSM's shape on K4: n, c, the host ms of the pack and of the digit
+    split with the sort, the occupied buckets (digit > 0) and each window's
+    longest run."""
+    from zkvm_prover_tpu_torch.ops import msm
+
+    import torch
+
+    dev = torch.device("cuda")
+    n, c = len(points), msm.window_bits(len(points))
+    pts, pack_s = synced_s(lambda: msm.words_tensor(msm.affine_words(points), dev))
+    (dig, (order, offsets)), sort_s = synced_s(lambda: (lambda d: (d, msm.sort_by_digit(d, c)))(
+        msm.digits(msm.words_tensor(msm.scalar_words(scalars), dev), c)))
+    counts = (offsets[:, 2:] - offsets[:, 1:-1])
+    return {"n": n, "c": c, "windows": dig.shape[0], "occupied": int((counts > 0).sum()),
+            "longest_run": counts.max(1).values.tolist(), "pack_ms": pack_s * 1e3,
+            "sort_ms": sort_s * 1e3, "pts": pts, "dig": dig, "order": order, "offsets": offsets}
+
+
+def k4_check(tag: str, points, scalars, plain: bool, edge: bool = False) -> dict:
+    """K4 on the card at n = len(points): each kernel's entry on the plan
+    of these inputs against its plain version on the card (`plain`): the
+    chunk partials, every level of the reduction (pieces, their buckets
+    and the buckets written) and the window sums, as affine points (their
+    Jacobian bits are free); the bucket step against the reference's
+    segmented combine, the whole MSM against the host engine
+    (`native/bn254`). Each entry's device ms per call (`k4_launches`, CUDA
+    events), the bucket step's ms (CUDA events, with the sort and the
+    plan), the plain versions' ms and each bound. `edge`: the chunk edges must cut a
+    run of a repeated point and an opposite pair."""
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import bn254 as bn
     from zkvm_prover_tpu_torch.fields import bn254_native
     from zkvm_prover_tpu_torch.ops import msm
 
     dev = torch.device("cuda")
-    n, c = len(points), msm.window_bits(len(points))
-    t0 = time.perf_counter()
-    pts = msm.words_tensor(msm.affine_words(points), dev)
-    dig = msm.digits(msm.words_tensor(msm.scalar_words(scalars), dev), c)
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
-    buckets = msm.window_buckets(pts, dig, c)
+    shape = k4_shape(points, scalars)
+    n, c = shape["n"], shape["c"]
+    pts, dig, order, offsets = (shape.pop(k) for k in ("pts", "dig", "order", "offsets"))
+    infinity = (pts == 0).all(-1)
+    plan, plan_s = synced_s(lambda: msm.chunk_plan(order, offsets, infinity, c))
+    W, nb = dig.shape[0], 1 << c
+
+    # the kernels once more, every level's inputs and outputs kept
+    before = dict(msm.launches)
+    buckets = torch.zeros((W, nb, 24), dtype=torch.int32, device=dev)
+    pieces = msm.chunk_partials(pts, plan, buckets)
+    stages = [("chunks", None, plan.piece_key, buckets.clone(), pieces)]
+    keys = plan.piece_key
+    while keys.shape[0] > 2:
+        prev = buckets.clone()
+        nxt, nkeys = msm.reduce_segments(pieces, keys, buckets)
+        stages.append(("reduce", (pieces, keys, prev), nkeys, buckets.clone(), nxt))
+        pieces, keys = nxt, nkeys
     sums = msm.window_sums(buckets, c)
-    got = msm.combine_windows(sums, c)
+    got, combine_s = synced_s(lambda: msm.combine_windows(sums, c))
+    launched = {k: msm.launches[k] - before[k] for k in K4_REPLACES}
     t0 = time.perf_counter()
     want = bn254_native.msm(points, scalars)
     host_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    whole = msm.msm_device(points, scalars, dev)
-    torch.cuda.synchronize()
-    whole_s = time.perf_counter() - t0
+    whole, whole_s = synced_s(lambda: msm.msm_device(points, scalars, dev))
     err_host = affine_err([got, whole], [want, want])
-    products = k4_products(dig, (pts == 0).all(-1), c)
-    row = {"n": n, "c": c, "windows": dig.shape[0], "host_engine_s": host_s, "pack_s": pack_s,
-           "msm_device_s": whole_s, "err_vs_host_engine": err_host, "fq_products": products,
+    products = k4_products(dig, infinity, c, plan)
+    row = {**shape, "live": plan.key.shape[0], "m": plan.m,
+           "chunks": plan.piece_key.shape[0] // 2,
+           "levels": [st[1][1].shape[0] for st in stages[1:]], "plan_ms": plan_s * 1e3,
+           "combine_ms": combine_s * 1e3, "host_engine_s": host_s, "msm_device_s": whole_s,
+           "err_vs_host_engine": err_host, "fq_products": products, "launches": launched,
            "steps": {}}
-    steps = {"bn254_msm_buckets": (lambda: msm.window_buckets(pts, dig, c),
-                                   lambda: msm.window_buckets_plain(pts, dig, c), buckets),
-             "bn254_msm_window_sums": (lambda: msm.window_sums(buckets, c),
-                                       lambda: msm.window_sums_plain(buckets, c), sums)}
-    plain_out = {}
-    for name, (kernel, plain_fn, out) in steps.items():
-        step = {"ms": time_ms(kernel, reps=5)}
-        if plain:
-            t0 = time.perf_counter()
-            plain_out[name] = plain_fn()
-            torch.cuda.synchronize()
-            step["plain_ms"] = (time.perf_counter() - t0) * 1e3
-            step["max_abs_err"] = affine_err(msm.to_affine(out), msm.to_affine(plain_out[name]))
-        b_ms, b_by = bound_ms(0, products[name] * MULS_PER_FQ_PRODUCT)
-        step.update(bound_ms=b_ms, bound_by=b_by)
+    if edge:
+        # a chunk edge inside a run of one repeated point, and one between
+        # a point and its negative
+        cut = torch.arange(plan.m, plan.key.shape[0], plan.m, device=dev)
+        same_bucket = plan.key[cut] == plan.key[cut - 1]
+        left, right = plan.idx[cut - 1].long(), plan.idx[cut].long()
+        pl, pr = pts[left], pts[right]
+        row["edges_in_a_repeat"] = int((same_bucket & (pl == pr).all(-1)).sum())
+        row["edges_in_an_opposite_pair"] = int((same_bucket & (pl[:, :8] == pr[:, :8]).all(-1)
+                                                & (pl[:, 8:] != pr[:, 8:]).any(-1)).sum())
+        if not (row["edges_in_a_repeat"] and row["edges_in_an_opposite_pair"]):
+            raise AssertionError(f"the edge case's chunk edges miss its repeats or pairs: {row}")
+    for name, launch in k4_launches(pts, plan, stages, buckets, c).items():
+        step = {"ms": time_ms(launch, reps=20), "launches": launched[name],
+                "fq_products": products[name]}
+        step["bound_ms"], step["bound_by"] = bound_ms(0, products[name] * MULS_PER_FQ_PRODUCT)
         row["steps"][name] = step
-    if plain:  # the plain window sums (of buckets equal to the plain ones) combined
-        row["err_plain_total"] = affine_err(
-            [msm.combine_windows(plain_out["bn254_msm_window_sums"], c)], [want])
-    print(f"[{tag}] K4 at n={n} (c={c}, {dig.shape[0]} windows): vs host engine err="
-          f"{err_host} (host engine {host_s * 1e3:.1f} ms, msm_device {whole_s * 1e3:.1f} ms "
-          f"wall, packing {pack_s * 1e3:.1f} ms)"
-          + "".join(f"; {k} {v['ms']:.4f} ms"
+    b_ms, b_by = bound_ms(0, products["bucket_step"] * MULS_PER_FQ_PRODUCT)
+    row["bucket_step"] = {"ms": time_ms(lambda: msm.window_buckets(pts, dig, c), reps=5),
+                          "kernel_ms": row["steps"]["bn254_msm_chunks"]["ms"]
+                          + row["steps"]["bn254_msm_reduce"]["ms"],
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "fq_products": products["bucket_step"]}
+    if plain:
+        err = {}
+        t0 = time.perf_counter()
+        ref_buckets = torch.zeros_like(buckets)
+        ref_pieces = msm.chunk_partials_plain(pts, plan, ref_buckets)
+        torch.cuda.synchronize()
+        row["steps"]["bn254_msm_chunks"]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        _, _, k_keys, k_buckets, k_pieces = stages[0]
+        live = k_keys >= 0
+        err["bn254_msm_chunks"] = max(point_err(k_pieces[live], ref_pieces[live]),
+                                      point_err(k_buckets, ref_buckets))
+        plain_ms, e = 0.0, 0
+        for _, (p_in, k_in, b_in), k_keys, k_buckets, k_pieces in stages[1:]:
+            t0 = time.perf_counter()
+            ref_buckets = b_in.clone()
+            ref_pieces, ref_keys = msm.reduce_level_plain(p_in, k_in, ref_buckets)
+            torch.cuda.synchronize()
+            plain_ms += (time.perf_counter() - t0) * 1e3
+            live = ref_keys >= 0
+            e = max(e, int(not torch.equal(ref_keys, k_keys)),
+                    point_err(k_pieces[live], ref_pieces[live]), point_err(k_buckets, ref_buckets))
+        err["bn254_msm_reduce"] = e
+        row["steps"]["bn254_msm_reduce"]["plain_ms"] = plain_ms
+        ref_sums, s = synced_s(lambda: msm.window_sums_plain(buckets, c))
+        row["steps"]["bn254_msm_window_sums"]["plain_ms"] = s * 1e3
+        err["bn254_msm_window_sums"] = point_err(sums, ref_sums)
+        for name, e in err.items():
+            row["steps"][name]["max_abs_err"] = e
+        ref_combine, s = synced_s(lambda: msm.window_buckets_plain(pts, dig, c))
+        row["bucket_step"].update(plain_ms=s * 1e3, max_abs_err=point_err(buckets, ref_combine),
+                                  wrapper_err=point_err(msm.window_buckets(pts, dig, c),
+                                                        ref_combine))
+        row["err_plain_total"] = affine_err([msm.combine_windows(ref_sums, c)], [want])
+    print(f"[{tag}] K4 at n={n} (c={c}, {W} windows, {row['live']} live entries, m={plan.m}, "
+          f"{row['chunks']} chunks, reduction levels of {row['levels']} slots; longest run "
+          f"{max(row['longest_run'])}): vs host engine err={err_host} (host engine "
+          f"{host_s * 1e3:.1f} ms, msm_device {whole_s * 1e3:.1f} ms wall; pack "
+          f"{row['pack_ms']:.1f}, digits+sort {row['sort_ms']:.1f}, plan {row['plan_ms']:.1f}, "
+          f"combine {row['combine_ms']:.1f} ms); bucket step {row['bucket_step']['ms']:.4f} ms "
+          f"(events, with sort and plan; kernels {row['bucket_step']['kernel_ms']:.4f} ms) bound "
+          f"{b_ms:.4f} ms"
+          + (f", against the reference's combine err={row['bucket_step']['max_abs_err']} "
+             f"(plain {row['bucket_step']['plain_ms']:.1f} ms)" if plain else "")
+          + "".join(f"; {k} {v['ms']:.4f} ms x{v['launches']}"
                     + (f" (plain {v['plain_ms']:.1f} ms, err={v['max_abs_err']})" if plain else "")
                     + f" bound {v['bound_ms']:.4f} ms" for k, v in row["steps"].items())
-          + (f"; plain whole err={row['err_plain_total']}" if plain else ""), flush=True)
-    if err_host or any(v.get("max_abs_err", 0) for v in row["steps"].values()) or \
-            row.get("err_plain_total", 0):
+          + (f"; plain whole err={row['err_plain_total']}" if plain else "")
+          + (f"; chunk edges in a repeat {row['edges_in_a_repeat']}, in an opposite pair "
+             f"{row['edges_in_an_opposite_pair']}" if edge else ""), flush=True)
+    if err_host or row.get("err_plain_total", 0) or any(
+            v.get("max_abs_err", 0) for v in row["steps"].values()) or \
+            row["bucket_step"].get("max_abs_err", 0) or row["bucket_step"].get("wrapper_err", 0):
         raise AssertionError(f"K4 disagrees at n={n}")
     return row
 
 
 def k4_edge_case(n: int, seed: int):
     """n points and scalars with K4's edge cases: points repeated (a run of
-    one point, a pair in one bucket), an opposite pair, infinity; scalars 0,
-    small (zero digits in every upper window), r - 1, r, r + 1 and the rest
-    uniform below 2^256 (mostly >= r)."""
+    one point longer than a chunk, a pair in one bucket), opposite pairs
+    side by side with equal scalars (some of them across a chunk edge),
+    infinity; scalars 0, small (zero digits in every upper window), r - 1,
+    r, r + 1 and the rest uniform below 2^256 (mostly >= r)."""
     import random
 
     from zkvm_prover_tpu_torch.fields import bn254 as bn
@@ -1948,15 +2127,18 @@ def k4_edge_case(n: int, seed: int):
     scalars[8:40] = [scalars[8]] * 32
     points[3] = points[4]
     points[5] = None
-    points[6] = bn.g1_neg(points[7])
-    scalars[6] = scalars[7]
+    for i in [6] + list(range(41, 73, 2)):
+        points[i] = bn.g1_neg(points[i + 1])
+        scalars[i] = scalars[i + 1]
     scalars[:5] = [0, 5, bn.R - 1, bn.R, bn.R + 1]
     return points, scalars
 
 
 def fq_check(seed: int) -> dict:
-    """K4's Fq core alone (`bn254_fq_mul`) on a 2^16 batch against the
-    plain Fq product on the card (`ops/bigint.py`), edge values included."""
+    """K4's Fq core alone (`bn254_fq_mul`) on 2^20 products against the
+    plain Fq product on the card (`ops/bigint.py`), edge values included;
+    its time and its rate against the 42.7 G products/s that the bound
+    assumes (16.75 T IMAD/s over 392 IMAD slots a product)."""
     import numpy as np
     import torch
 
@@ -1965,7 +2147,7 @@ def fq_check(seed: int) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n = 1 << 16
+    n = 1 << 20
     # residues below q: the top word drawn below q's top word
     a, b = (torch.randint(-(1 << 31), 1 << 31, (n, 8), generator=gen, dtype=torch.int32,
                           device=dev) for _ in range(2))
@@ -1976,7 +2158,7 @@ def fq_check(seed: int) -> dict:
         x.to_bytes(32, "little") for x in (0, 1, bn.Q - 1, bn.Q - 2, (1 << 256) % bn.Q)),
         dtype=np.uint32), dev).reshape(5, 8)
     a[:5], b[:5], b[5:10] = edges, edges.flip(0), edges
-    ms = time_ms(lambda: msm.fq_mul(a, b), reps=10)
+    ms = time_ms(lambda: msm.fq_mul(a, b), reps=20)
     got = msm.fq_mul(a, b)
     t0 = time.perf_counter()
     want = bigint.to_words(bigint.BN254_FQ.mul(bigint.from_words(a), bigint.from_words(b)))
@@ -1984,12 +2166,107 @@ def fq_check(seed: int) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max_err(got, want)
     b_ms, b_by = bound_ms(3 * n * 32, n * MULS_PER_FQ_PRODUCT)
+    rate = n / ms / 1e6
+    peak = INT_MULS_PER_S / MULS_PER_FQ_PRODUCT / 1e9
     print(f"[12] K4 Fq product (bn254_fq_mul) on ({n}, 8) words: err={err} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.1f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+          f"plain_ms={plain_ms:.1f} bound_ms={b_ms:.4f} ({b_by}); {rate:.2f} G products/s "
+          f"against {peak:.2f} ({rate / peak:.3f} of the rate the bound assumes)", flush=True)
     if err:
         raise AssertionError("K4's Fq product disagrees with the plain version")
     return {"n": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, "g_products_per_s": rate, "share_of_assumed_rate": rate / peak}
+
+
+@contextlib.contextmanager
+def k4_recorder():
+    """Every `msm.msm_device` call while the block runs: its inputs, its
+    result, its wall seconds, and the device ms (CUDA events) of its bucket
+    step (`window_buckets`, with the sort and the plan) and of each K4 entry
+    it calls, with their calls. The events are read once the MSM has
+    returned (its combine waits for the device), so that timing adds no
+    synchronisation inside it."""
+    import torch
+
+    from zkvm_prover_tpu_torch.ops import msm
+
+    records = []
+    entries = {"window_buckets": "bucket_step", "chunk_partials": "bn254_msm_chunks",
+               "reduce_segments": "bn254_msm_reduce", "window_sums": "bn254_msm_window_sums"}
+    originals = {name: getattr(msm, name) for name in ("msm_device", *entries)}
+    pending = []
+
+    def msm_device(points, scalars, device, c=None):
+        rec = {"n": len(points), "points": list(points), "scalars": list(scalars),
+               "ms": {k: 0.0 for k in entries.values()}, "calls": {k: 0 for k in entries.values()}}
+        records.append(rec)
+        t0 = time.perf_counter()
+        rec["result"] = originals["msm_device"](points, scalars, device, c)
+        rec["s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for key, start, stop in pending:
+            rec["ms"][key] += start.elapsed_time(stop)
+            rec["calls"][key] += 1
+        pending.clear()
+        return rec["result"]
+
+    def timed(name):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = originals[name](*args, **kwargs)
+            stop.record()
+            pending.append((entries[name], start, stop))
+            return out
+        return call
+
+    msm.msm_device = msm_device
+    for name in entries:
+        setattr(msm, name, timed(name))
+    try:
+        yield records
+    finally:
+        for name, fn in originals.items():
+            setattr(msm, name, fn)
+
+
+def k4_wrap_msms(records: list) -> list:
+    """Phase 12's MSMs after the wrap: each result against the host engine,
+    and its shape (`k4_shape`) with the host ms of its window combine."""
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import bn254_native
+    from zkvm_prover_tpu_torch.ops import msm
+
+    rows = []
+    for i, rec in enumerate(records):
+        t0 = time.perf_counter()
+        want = bn254_native.msm(rec["points"], rec["scalars"])
+        host_s = time.perf_counter() - t0
+        shape = k4_shape(rec["points"], rec["scalars"])
+        pts, dig, c = shape.pop("pts"), shape.pop("dig"), shape["c"]
+        for k in ("order", "offsets"):
+            shape.pop(k)
+        sums = msm.window_sums(msm.window_buckets(pts, dig, c), c)
+        torch.cuda.synchronize()
+        _, combine_s = synced_s(lambda: msm.combine_windows(sums, c))
+        row = {**shape, "combine_ms": combine_s * 1e3, "host_engine_s": host_s,
+               "equal_to_host_engine": rec["result"] == want, "wall_s": rec["s"],
+               "device_ms": rec["ms"], "calls": rec["calls"]}
+        rows.append(row)
+        longest = max(row["longest_run"])
+        print(f"[12] MSM {i}: n={row['n']} c={c} occupied {row['occupied']} of "
+              f"{row['windows'] * ((1 << c) - 1)} buckets, longest run {longest} (window "
+              f"{row['longest_run'].index(longest)}; per window {row['longest_run']}); host "
+              f"ms: pack {row['pack_ms']:.2f}, digits+sort {row['sort_ms']:.2f}, combine "
+              f"{row['combine_ms']:.2f}; K4 device ms: "
+              + ", ".join(f"{k} {v:.4f}" + (f" ({row['calls'][k]} calls)"
+                                            if k == "bn254_msm_reduce" else "")
+                          for k, v in row["device_ms"].items())
+              + f"; equal to the host engine: {row['equal_to_host_engine']}", flush=True)
+    if not all(r["equal_to_host_engine"] for r in rows):
+        raise AssertionError("a wrap MSM on K4 disagrees with the host engine")
+    return rows
 
 
 @contextlib.contextmanager
@@ -2022,16 +2299,20 @@ def flipped(raw: bytes, at: int) -> bytes:
 
 
 def snark_cell(bundles, bundle_task, seed: int) -> dict:
-    """Phase 12: the SNARK wrapper over phase 8's bundle. K4's Fq core on a
-    2^16 batch and a whole MSM of 2^9 points with its edge cases against
+    """Phase 12: the SNARK wrapper over phase 8's bundle. K4's Fq core on
+    2^20 products and a whole MSM of 2^9 points with its edge cases against
     their plain versions; then, with the launch counts zeroed just before,
     the bundle Prover's `gen_proof_universal(task, with_snark=True)`: the
     STARK from its disk cache (no STARK launch), the wrapper keys (SRS,
     `plonk.setup`), the accumulator, `plonk.prove`, every MSM of eight or
-    more points on K4; the split printed. `UniversalVerifier.verify_evm_proof`
-    True, and False for a flipped instance byte, a flipped blob byte and
-    another app's vk. Last, K4 at the path's largest MSM and at 2^12, on the
-    path's own inputs, against the plain version and the host engine."""
+    more points on K4; the split printed. Every MSM of the wrap against the
+    host engine, with its shape, skew and host and device split.
+    `UniversalVerifier.verify_evm_proof` True, and False for a flipped
+    instance byte, a flipped blob byte and another app's vk. Last, K4 on
+    the path's largest and its most skewed MSM against the plain versions,
+    and uniform scalars on the path's points at each size beside them."""
+    import random
+
     import torch
 
     from zkvm_prover_tpu_torch.fields import bn254 as bn
@@ -2040,36 +2321,30 @@ def snark_cell(bundles, bundle_task, seed: int) -> dict:
     from zkvm_prover_tpu_torch.snark import plonk, wrapper
 
     report = {"fq_mul": fq_check(seed)}
-    report["msm_edge_cases"] = k4_check("12", *k4_edge_case(K4_SMALL_N, seed), plain=True)
+    report["msm_edge_cases"] = k4_check("12", *k4_edge_case(K4_SMALL_N, seed), plain=True,
+                                        edge=True)
 
     prover = bundles.prover
     if prover.cache_dir is None or prover._cache_path(bundle_task) is None \
             or not prover._cache_path(bundle_task).exists():
         raise AssertionError("the bundle proof is not in the prover's disk cache")
-    inputs = {}
-
-    def keep_inputs(args, kwargs):
-        points, scalars = args[0], args[1]
-        inputs.setdefault(len(points), (list(points), list(scalars)))
-        return {"n": len(points)}
 
     torch.cuda.synchronize()
     reset_counts()
     with contextlib.ExitStack() as stack:
-        srs_calls, setup_calls, acc_calls, keccak_calls, transcript_calls, prove_calls, \
-            msm_calls = (stack.enter_context(timed_calls(*a)) for a in (
+        srs_calls, setup_calls, acc_calls, keccak_calls, transcript_calls, prove_calls = (
+            stack.enter_context(timed_calls(*a)) for a in (
                 (bn.KzgSrs, "generate_insecure"), (plonk, "setup"), (wrapper, "_accumulator"),
-                (wrapper, "keccak256"), (plonk, "keccak256"), (plonk, "prove"),
-                (msm, "msm_device", keep_inputs)))
-        k4_ms = [stack.enter_context(device_timed(msm, f)) for f in ("window_buckets",
-                                                                      "window_sums")]
+                (wrapper, "keccak256"), (plonk, "keccak256"), (plonk, "prove")))
+        records = stack.enter_context(k4_recorder())
         t0 = time.perf_counter()
         ep = prover.gen_proof_universal(bundle_task, with_snark=True)
         torch.cuda.synchronize()
         wrap_s = time.perf_counter() - t0
     stark_launches = sum(launch_counts().values())
     counts = snark_counts()
-    n_msm = len(msm_calls)
+    n_msm = len(records)
+    k4_ms = {k: sum(r["ms"][k] for r in records) for k in records[0]["ms"]} if records else {}
     print(f"[12] {prover.app.name} gen_proof_universal(with_snark=True) {wrap_s:.3f} s: SRS "
           f"{sum(c['s'] for c in srs_calls):.3f} s, plonk.setup "
           f"{sum(c['s'] for c in setup_calls):.3f} s, accumulator "
@@ -2077,11 +2352,12 @@ def snark_cell(bundles, bundle_task, seed: int) -> dict:
           f"{sum(c['s'] for c in keccak_calls):.3f} s over {len(keccak_calls)} calls), "
           f"plonk.prove {sum(c['s'] for c in prove_calls):.3f} s (transcript keccak "
           f"{sum(c['s'] for c in transcript_calls):.3f} s); {n_msm} MSMs "
-          f"({sorted(set(c['n'] for c in msm_calls))} points) in "
-          f"{sum(c['s'] for c in msm_calls):.3f} s wall, K4 device "
-          f"{sum(k4_ms[0]):.3f} + {sum(k4_ms[1]):.3f} ms; launches {counts}, STARK kernel "
-          f"launches {stark_launches}", flush=True)
-    if stark_launches or any(v != n_msm for v in counts.values()) or not n_msm:
+          f"({sorted(set(r['n'] for r in records))} points) in "
+          f"{sum(r['s'] for r in records):.3f} s wall, K4 device ms (CUDA events): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in k4_ms.items())
+          + f"; launches {counts}, STARK kernel launches {stark_launches}", flush=True)
+    if stark_launches or not n_msm or counts["bn254_msm_chunks"] != n_msm \
+            or counts["bn254_msm_window_sums"] != n_msm or counts["bn254_msm_reduce"] < n_msm:
         raise AssertionError("the wrap did not take its STARK from the cache, or an MSM "
                              "missed K4")
     report.update(
@@ -2089,10 +2365,11 @@ def snark_cell(bundles, bundle_task, seed: int) -> dict:
         setup_s=sum(c["s"] for c in setup_calls), accumulator_s=sum(c["s"] for c in acc_calls),
         wrapper_keccak_s=sum(c["s"] for c in keccak_calls),
         transcript_keccak_s=sum(c["s"] for c in transcript_calls),
-        prove_s=sum(c["s"] for c in prove_calls), msm_sizes=[c["n"] for c in msm_calls],
-        msm_wall_s=sum(c["s"] for c in msm_calls), k4_buckets_device_ms=sum(k4_ms[0]),
-        k4_window_sums_device_ms=sum(k4_ms[1]), launches=counts,
-        proof_bytes=len(ep.proof), instance_bytes=len(ep.instances))
+        prove_s=sum(c["s"] for c in prove_calls), msm_sizes=[r["n"] for r in records],
+        msm_wall_s=sum(r["s"] for r in records), k4_device_ms=k4_ms,
+        k4_kernel_device_ms=sum(v for k, v in k4_ms.items() if k != "bucket_step"),
+        launches=counts, proof_bytes=len(ep.proof), instance_bytes=len(ep.instances))
+    report["msms"] = k4_wrap_msms(records)
 
     cfg = prover.config.stark
     verifier = UniversalVerifier(prover.app.name, cfg)
@@ -2116,12 +2393,37 @@ def snark_cell(bundles, bundle_task, seed: int) -> dict:
         raise AssertionError("EvmProof verification phase failed")
     report.update(verify_s=verify_s, tampered=tampers)
 
-    # K4 on the path's own inputs: its largest MSM with the plain version
-    # too, and 2^12 against the host engine
-    largest = max(inputs)
-    report["msm_path"] = [k4_check("12", *inputs[largest], plain=True)]
-    if 1 << 12 in inputs and largest != 1 << 12:
-        report["msm_path"].append(k4_check("12", *inputs[1 << 12], plain=False))
+    # K4 on the path's own inputs, each kernel against its plain version:
+    # the largest MSM and the most skewed one (the longest run of a window)
+    largest = max(range(n_msm), key=lambda i: records[i]["n"])
+    skewed = max(range(n_msm), key=lambda i: (max(report["msms"][i]["longest_run"]),
+                                               records[i]["n"]))
+    report["msm_path"] = [k4_check("12", records[largest]["points"],
+                                   records[largest]["scalars"], plain=True)]
+    report["msm_skewed_index"] = skewed
+    if skewed != largest:
+        report["msm_path"].append(k4_check("12", records[skewed]["points"],
+                                           records[skewed]["scalars"], plain=True))
+    # uniform scalars below r on the points of the path's first MSM of each
+    # size, through msm_device as the wrap ran it, beside the wrap's MSMs
+    rng = random.Random(seed)
+    report["msm_uniform"] = {}
+    for n in sorted(set(r["n"] for r in records)):
+        pts = next(r["points"] for r in records if r["n"] == n)
+        sc = [rng.randrange(bn.R) for _ in range(n)]
+        with k4_recorder() as uniform:
+            for _ in range(3):
+                msm.msm_device(pts, sc, torch.device("cuda"))
+        steps = {k: sum(u["ms"][k] for u in uniform) / len(uniform) for k in uniform[0]["ms"]}
+        kernels = steps["bn254_msm_chunks"] + steps["bn254_msm_reduce"]
+        worst = max((r["device_ms"]["bn254_msm_chunks"] + r["device_ms"]["bn254_msm_reduce"]) /
+                    kernels for r in report["msms"] if r["n"] == n)
+        report["msm_uniform"][n] = {"device_ms": steps, "bucket_kernels_ms": kernels,
+                                    "worst_wrap_ratio": worst}
+        print(f"[12] uniform scalars at n={n}: K4 device ms (CUDA events, mean of 3) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+              + f"; the wrap's MSMs of {n} points take up to {worst:.2f}x its bucket kernels "
+              f"(limit {K4_SKEW_LIMIT})", flush=True)
     torch.cuda.empty_cache()
     return report
 
@@ -2340,7 +2642,7 @@ def main() -> int:
     # 13. the kernels line: per kernel, its largest main-path shape; launches
     # summed over the nine STARK paths (single-AIR proof, machine cell, rv32,
     # chunk, batch, bundle, ext guest, deferred aggregation, continuations),
-    # then K4's two kernels, which only the SNARK path launches
+    # then K4's three entries, which only the SNARK path launches
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -2367,16 +2669,16 @@ def main() -> int:
                      shape=row["shape"], bytes=row["bytes"])
         line.append(entry)
     path = report["snark"]["msm_path"][0]
+    checks = [report["snark"]["msm_edge_cases"], *report["snark"]["msm_path"]]
     for name, step in path["steps"].items():
         launched = report["snark"]["launches"][name]
         line.append({"name": name, "route": "cuda", "source": K4_SOURCE,
                      "replaces": K4_REPLACES[name], "launches": launched,
                      "launches_by_path": {"snark": launched},
-                     "max_abs_err": max(step["max_abs_err"], report["snark"]["msm_edge_cases"][
-                         "steps"][name]["max_abs_err"]),
+                     "max_abs_err": max(c["steps"][name]["max_abs_err"] for c in checks),
                      "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
                      "bound_by": step["bound_by"], "library_ms": None,
-                     "shape": f"n={path['n']} c={path['c']} W={path['windows']}",
+                     "shape": f"n={path['n']} c={path['c']} W={path['windows']} m={path['m']}",
                      "fq_products": path["fq_products"][name]})
     report["total_s"] = time.perf_counter() - t_all
     print(f"[13] seconds by phase: "

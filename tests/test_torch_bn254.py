@@ -219,6 +219,145 @@ def test_window_steps_take_the_plain_version_on_cpu():
     assert msm.launches == before
 
 
+# ---------------------------------------------------------------------------
+# K4's split of the bucket step and of the window sums (plain versions)
+# ---------------------------------------------------------------------------
+
+
+def _words_t(values):
+    return torch.from_numpy(np.ascontiguousarray(values).view(np.int32).copy())
+
+
+def _ref_buckets(pts, sc, c):
+    """The JAX package's bucket step (its numpy path) as K4's words."""
+    grid = ref_msm.window_buckets(ref_msm.affine_to_limbs(pts), ref_msm._digits(sc, c), c,
+                                  use_jax=False)
+    return torch.cat([bigint.to_words(torch.from_numpy(g.astype(np.int64))) for g in grid], -1)
+
+
+def _ref_affine(grid):
+    X, Y, Z = grid
+    return [ref_msm.pt_to_affine_int((x, y, z)) for x, y, z in
+            zip(X.reshape(-1, X.shape[-1]), Y.reshape(-1, X.shape[-1]), Z.reshape(-1, X.shape[-1]))]
+
+
+def _digit_case(kind, n, seed):
+    """Points (one at infinity) and scalars whose digits are uniform, all
+    equal, two-valued or mostly 0 (64-bit scalars: every upper window 0)."""
+    pts = _points(seed, n)
+    pts[2] = None
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        sc = _ints(seed, n, bn.R)
+    elif kind == "all_equal":
+        sc = [_ints(seed, 1, bn.R)[0]] * n
+    elif kind == "two_buckets":
+        a, b = _ints(seed, 2, bn.R)
+        sc = [a if rng.random() < 0.5 else b for _ in range(n)]
+    else:
+        sc = [int(v) for v in rng.integers(0, 1 << 63, size=n)]
+    return pts, sc
+
+
+def _plan(pts, sc, c, m):
+    p = _words_t(msm.affine_words(pts))
+    dig = msm.digits(_words_t(msm.scalar_words(sc)), c)
+    order, offsets = msm.sort_by_digit(dig, c)
+    return p, dig, msm.chunk_plan(order, offsets, (p == 0).all(-1), c, m)
+
+
+def _reduce_all(p, plan, W, c):
+    """The bucket step as the kernels run it, on the plain versions."""
+    out = torch.zeros((W, 1 << c, 24), dtype=torch.int32)
+    pieces, keys = msm.chunk_partials(p, plan, out), plan.piece_key
+    levels = 0
+    while keys.shape[0] > 2:
+        pieces, keys = msm.reduce_segments(pieces, keys, out)
+        levels += 1
+    return out, levels
+
+
+@pytest.mark.parametrize("kind", ["uniform", "all_equal", "two_buckets", "digit0_heavy"])
+def test_chunk_plan_covers_every_live_point(kind):
+    """Every live entry (digit > 0, point not at infinity) of every window
+    sits in exactly one chunk under its own bucket; each piece slot names the
+    bucket of the run it holds (a bucket in several chunks: the first one's
+    tail, every later one's head, and the tail of a chunk it covers whole;
+    its slots side by side); the runs are at most chunks + occupied
+    buckets; the buckets that follow equal the JAX package's."""
+    n, c, m = 10, 4, 3
+    pts, sc = _digit_case(kind, n, 7)
+    p, dig, plan = _plan(pts, sc, c, m)
+    W, nb = dig.shape[0], 1 << c
+    want = sorted((w, i) for w in range(W) for i in range(n)
+                  if dig[w, i] != 0 and pts[i] is not None)
+    key, idx = plan.key.tolist(), plan.idx.tolist()
+    assert sorted((k // nb, i) for k, i in zip(key, idx)) == want
+    assert all(k % nb == dig[k // nb, i] for k, i in zip(key, idx)) and key == sorted(key)
+    starts = plan.starts().tolist()
+    assert starts[0] == 0 and starts[-1] == len(key) and len(starts) == -(-len(key) // m) + 1
+    assert all(0 < b - a <= m for a, b in zip(starts, starts[1:]))
+    chunks_of = {}
+    for t, (a, b) in enumerate(zip(starts, starts[1:])):
+        for k in key[a:b]:
+            chunks_of.setdefault(k, []).append(t)
+    slots = plan.piece_key.tolist()
+    for k, ts in chunks_of.items():
+        ts = sorted(set(ts))
+        want_slots = [] if len(ts) == 1 else [2 * ts[0] + 1] + [s for t in ts[1:] for s in (
+            (2 * t, 2 * t + 1) if t != ts[-1] else (2 * t,))]
+        assert [i for i, v in enumerate(slots) if v == k] == want_slots
+    runs = sum(len(set(key[a:b])) for a, b in zip(starts, starts[1:]))
+    assert runs <= len(starts) - 1 + len(chunks_of)
+    buckets, _ = _reduce_all(p, plan, W, c)
+    assert msm.to_affine(buckets) == _ref_affine(ref_msm.window_buckets(
+        ref_msm.affine_to_limbs(pts), ref_msm._digits(sc, c), c, use_jax=False))
+
+
+@pytest.mark.parametrize("c", [4, 6])
+def test_chunk_partials_and_reduction_match_reference(c, monkeypatch):
+    """The chunk partials and the levels of the reduction (tiles of 4 here,
+    so that a heavy bucket spans several levels) against the JAX package's
+    bucket step, with a heavy bucket (half the scalars equal), a repeated
+    point in it, an opposite pair and a point at infinity."""
+    monkeypatch.setattr(msm, "TILE", 4)
+    pts, sc = _msm_case(20, c)
+    sc[8:18] = [sc[8]] * 10
+    pts[9:12] = [pts[9]] * 3
+    pts[14], sc[14] = bn.g1_neg(pts[15]), sc[15]
+    p, dig, plan = _plan(pts, sc, c, 3)
+    buckets, levels = _reduce_all(p, plan, dig.shape[0], c)
+    assert levels >= 3
+    assert msm.to_affine(buckets) == msm.to_affine(_ref_buckets(pts, sc, c))
+
+
+@pytest.mark.parametrize("c,log_s", [(4, 2), (5, 5), (6, 3)])
+def test_window_sum_split_matches_reference(c, log_s):
+    """K4's window-sum split (2^log_s leaves of L buckets by running sums,
+    then the (A, V, D) tree) on the JAX package's buckets, per window as
+    affine points: at c = 4 against its `_weighted_bucket_sum`; at c = 5 and
+    6 (where that numpy scan takes 10-22 s) against sum_k k B_k by its host
+    group law; and the whole MSM against the host engine."""
+    pts, sc = _msm_case(10, c)
+    grid = ref_msm.window_buckets(ref_msm.affine_to_limbs(pts), ref_msm._digits(sc, c), c,
+                                  use_jax=False)
+    buckets = torch.cat([bigint.to_words(torch.from_numpy(g.astype(np.int64))) for g in grid], -1)
+    if c == 4:
+        want = _ref_affine(ref_msm._weighted_bucket_sum(grid, c, use_jax=False))
+    else:
+        aff, nb = _ref_affine(grid), 1 << c
+        want = []
+        for w in range(buckets.shape[0]):
+            acc = None
+            for k in range(1, nb):
+                acc = ref_bn.g1_add(acc, ref_bn.g1_mul(aff[w * nb + k], k) if aff[w * nb + k]
+                                    else None)
+            want.append(acc)
+    sums = msm.window_sums(buckets, c, log_s)
+    assert msm.to_affine(sums) == want
+    assert msm.combine_windows(sums, c) == bn254_native.msm(pts, sc)
+
+
 def test_wrappers_reject_bad_input():
     p = torch.zeros((8, 16), dtype=torch.int32)
     dig = torch.zeros((msm.n_windows(4), 8), dtype=torch.int64)
@@ -230,6 +369,18 @@ def test_wrappers_reject_bad_input():
         msm.window_buckets(p, dig, 5)  # 51 windows of 5 bits, not 64
     with pytest.raises(ValueError):
         msm.window_sums(torch.zeros((3, 16, 23), dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        msm.window_sums(torch.zeros((3, 16, 24), dtype=torch.int32), 4, 5)  # 32 leaves of 16
+    plan = msm.ChunkPlan(*(torch.zeros(9, dtype=torch.int32),) * 2, 4,
+                         torch.zeros(6, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        msm.chunk_partials(p.to(torch.int64), plan, torch.zeros((1, 16, 24), dtype=torch.int32))
+    with pytest.raises(ValueError):  # 9 entries in chunks of 4: 3 chunks, 6 slots
+        msm.chunk_partials(p, plan._replace(m=2), torch.zeros((1, 16, 24), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        msm.reduce_segments(torch.zeros((4, 24), dtype=torch.int32),
+                            torch.zeros(5, dtype=torch.int32),
+                            torch.zeros((1, 16, 24), dtype=torch.int32))
     with pytest.raises(TypeError):
         msm.fq_mul(torch.zeros((4, 8), dtype=torch.int64), torch.zeros((4, 8), dtype=torch.int64))
 

@@ -729,48 +729,103 @@ def _msm_inputs(n, seed):
     return pts, sc
 
 
-@pytest.mark.parametrize("n,c", [(8, 4), (100, 5), (512, 6), (512, 8), (3000, 9)])
-def test_msm_kernels_match_plain(cuda, n, c):
-    """Each kernel of K4 against its plain version on the card, as affine
-    points (Jacobian bits are free), and the whole MSM against the host
-    engine; the points given as a contiguous view one word into its
-    storage (4-byte aligned only)."""
+def _skewed(sc, kind):
+    """Scalars whose digits crowd into few buckets: all equal but a few
+    (a selector polynomial's commitment), or two values."""
+    if kind == "uniform":
+        return sc
+    if kind == "equal_but_3":
+        return [sc[0]] * (len(sc) - 3) + sc[-3:]
+    return [sc[i % 2] for i in range(len(sc))]
+
+
+def _same_points(a, b):
+    from zkvm_prover_tpu_torch.ops import msm
+
+    assert msm.to_affine(a) == msm.to_affine(b)
+
+
+@pytest.mark.parametrize("n,c,kind", [(8, 4, "uniform"), (100, 5, "uniform"),
+                                      (512, 6, "uniform"), (512, 8, "uniform"),
+                                      (3000, 9, "uniform"), (3000, 9, "equal_but_3"),
+                                      (512, 6, "two_values"), (4096, 9, "equal_but_3")])
+def test_msm_kernels_match_plain(cuda, n, c, kind):
+    """Each entry of K4 against its plain version on the card, as affine
+    points (Jacobian bits are free): the chunk partials, every level of the
+    reduction (pieces, their buckets, the buckets written) and the window
+    sums; the bucket step against the reference's segmented combine and the
+    whole MSM against the host engine; uniform and skewed digits; the
+    points given as a contiguous view one word into its storage (4-byte
+    aligned only)."""
     from zkvm_prover_tpu_torch.fields import bn254_native
     from zkvm_prover_tpu_torch.ops import msm
 
     pts, sc = _msm_inputs(n, n + c)
+    sc = _skewed(sc, kind)
     store = torch.zeros(16 * n + 1, dtype=torch.int32, device=cuda)
     view = store[1:].view(n, 16)
     view.copy_(msm.words_tensor(msm.affine_words(pts), cuda))
     assert view.data_ptr() % 16 == 4
     dig = msm.digits(msm.words_tensor(msm.scalar_words(sc), cuda), c)
+    order, offsets = msm.sort_by_digit(dig, c)
+    plan = msm.chunk_plan(order, offsets, (view == 0).all(-1), c)
     before = dict(msm.launches)
-    buckets = msm.window_buckets(view, dig, c)
-    assert msm.to_affine(buckets) == msm.to_affine(msm.window_buckets_plain(view, dig, c))
+    buckets = torch.zeros((dig.shape[0], 1 << c, 24), dtype=torch.int32, device=cuda)
+    ref_buckets = torch.zeros_like(buckets)
+    pieces = msm.chunk_partials(view, plan, buckets)
+    ref_pieces = msm.chunk_partials_plain(view, plan, ref_buckets)
+    keys = plan.piece_key
+    _same_points(pieces[keys >= 0], ref_pieces[keys >= 0])
+    _same_points(buckets, ref_buckets)
+    levels = 0
+    while keys.shape[0] > 2:
+        ref_buckets = buckets.clone()
+        nxt, nkeys = msm.reduce_segments(pieces, keys, buckets)
+        ref_nxt, ref_keys = msm.reduce_level_plain(pieces, keys, ref_buckets)
+        assert torch.equal(nkeys, ref_keys)
+        _same_points(nxt[nkeys >= 0], ref_nxt[nkeys >= 0])
+        _same_points(buckets, ref_buckets)
+        pieces, keys, levels = nxt, nkeys, levels + 1
+    _same_points(buckets, msm.window_buckets_plain(view, dig, c))
+    _same_points(msm.window_buckets(view, dig, c), buckets)
     sums = msm.window_sums(buckets, c)
-    assert msm.to_affine(sums) == msm.to_affine(msm.window_sums_plain(buckets, c))
+    _same_points(sums, msm.window_sums_plain(buckets, c))
     assert msm.combine_windows(sums, c) == bn254_native.msm(pts, sc)
-    assert msm.launches["bn254_msm_buckets"] == before["bn254_msm_buckets"] + 1
+    assert msm.launches["bn254_msm_chunks"] == before["bn254_msm_chunks"] + 2
+    assert msm.launches["bn254_msm_reduce"] == before["bn254_msm_reduce"] + 2 * levels
     assert msm.launches["bn254_msm_window_sums"] == before["bn254_msm_window_sums"] + 1
+    for log_s in range(max(0, c - 3), c + 1):
+        _same_points(msm.window_sums(buckets, c, log_s), sums)
     with pytest.raises(ValueError):
         msm.window_buckets(torch.zeros((2 * n, 16), dtype=torch.int32, device=cuda)[::2],
                            dig, c)
 
 
-@pytest.mark.parametrize("n", [8, 1 << 12, 1 << 13])
-def test_msm_jac_on_cuda_is_k4(cuda, n):
-    """msm_jac on the card: one launch of each kernel, the host engine's
-    point (a repeated-scalar case: every point in one bucket a window)."""
+@pytest.mark.parametrize("n,kind", [(8, "repeated"), (1 << 12, "uniform"),
+                                    (1 << 13, "uniform"), (1 << 13, "equal_scalars"),
+                                    (1 << 13, "equal_points")])
+def test_msm_jac_on_cuda_is_k4(cuda, n, kind):
+    """msm_jac on the card: one launch of the chunk and window-sum entries
+    and at least one of the reduction, the host engine's point: a
+    repeated-scalar case at 8 (every point in one bucket a window), uniform
+    scalars, all scalars equal (each window one bucket of n points) and all
+    points equal at 2^13."""
     from zkvm_prover_tpu_torch.fields import bn254 as bn
     from zkvm_prover_tpu_torch.fields import bn254_native
     from zkvm_prover_tpu_torch.ops import msm
 
     pts, sc = _msm_inputs(n, n)
-    if n == 8:
+    if kind == "repeated":
         sc = [0x1111111111111111] * n
+    elif kind == "equal_scalars":
+        sc = [sc[1]] * n
+    elif kind == "equal_points":
+        pts = [pts[4]] * n
     before = dict(msm.launches)
     assert bn.msm_jac(pts, sc, device=cuda) == bn254_native.msm(pts, sc)
-    assert msm.launches["bn254_msm_buckets"] == before["bn254_msm_buckets"] + 1
+    assert msm.launches["bn254_msm_chunks"] == before["bn254_msm_chunks"] + 1
+    assert msm.launches["bn254_msm_window_sums"] == before["bn254_msm_window_sums"] + 1
+    assert msm.launches["bn254_msm_reduce"] >= before["bn254_msm_reduce"] + (n > 8)
 
 
 def test_fq_kernel_matches_plain(cuda):
@@ -793,26 +848,50 @@ def test_fq_kernel_matches_plain(cuda):
 
 
 def test_cuda_msm_does_not_fall_back(cuda, monkeypatch):
-    """Without the kernel library a CUDA MSM raises: neither the host
-    engine nor the python path answers for it."""
+    """Without the kernel library a CUDA MSM raises, and so does every K4
+    entry on CUDA tensors: neither the host engine, the python path nor a
+    plain version answers for it."""
     from zkvm_prover_tpu_torch import _build
     from zkvm_prover_tpu_torch.fields import bn254 as bn
     from zkvm_prover_tpu_torch.fields import bn254_native
+    from zkvm_prover_tpu_torch.ops import msm
 
     def missing():
         raise RuntimeError("the kernel library is missing")
 
-    def host_engine(*args, **kwargs):
-        raise AssertionError("a CUDA MSM reached the host engine")
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA MSM reached the host engine or a plain version")
 
+    pts, sc = _msm_inputs(64, 1)
+    c = msm.window_bits(64)
+    p = msm.words_tensor(msm.affine_words(pts), cuda)
+    dig = msm.digits(msm.words_tensor(msm.scalar_words(sc), cuda), c)
+    order, offsets = msm.sort_by_digit(dig, c)
+    plan = msm.chunk_plan(order, offsets, (p == 0).all(-1), c)
+    buckets = torch.zeros((dig.shape[0], 1 << c, 24), dtype=torch.int32, device=cuda)
     monkeypatch.setattr(_build, "_LIB", None)
     monkeypatch.setattr(_build, "build", missing)
-    monkeypatch.setattr(bn254_native, "msm", host_engine)
-    pts, sc = _msm_inputs(8, 1)
-    with pytest.raises(RuntimeError, match="kernel library is missing"):
-        bn.msm_jac(pts, sc, device=cuda)
-    with pytest.raises(RuntimeError, match="kernel library is missing"):
-        bn.kzg_commit(bn.KzgSrs(pts, bn.G2_GEN), sc, device=None)
+    for name in ("chunk_partials_plain", "reduce_level_plain", "window_sums_plain",
+                 "window_buckets_plain"):
+        monkeypatch.setattr(msm, name, refuse)
+    monkeypatch.setattr(bn254_native, "msm", refuse)
+    before = dict(msm.launches)
+    entries = {
+        "bn254_msm_chunks": lambda: msm.chunk_partials(p, plan, buckets),
+        "bn254_msm_reduce": lambda: msm.reduce_segments(
+            torch.zeros((4, 24), dtype=torch.int32, device=cuda), plan.piece_key[:4].contiguous(),
+            buckets),
+        "bn254_msm_window_sums": lambda: msm.window_sums(buckets, c),
+        "bn254_fq_mul": lambda: msm.fq_mul(p[:, :8].contiguous(), p[:, 8:].contiguous()),
+        "window_buckets": lambda: msm.window_buckets(p, dig, c),
+        "msm_jac": lambda: bn.msm_jac(pts, sc, device=cuda),
+        "kzg_commit": lambda: bn.kzg_commit(bn.KzgSrs(pts, bn.G2_GEN), sc, device=None),
+    }
+    assert set(msm.launches) <= set(entries)
+    for name, call in entries.items():
+        with pytest.raises(RuntimeError, match="kernel library is missing"):
+            call()
+    assert msm.launches == before
 
 
 def test_evm_proof_cuda_equals_cpu(cuda):
@@ -826,10 +905,10 @@ def test_evm_proof_cuda_equals_cpu(cuda):
     from zkvm_prover_tpu_torch.stark.config import fast_test_config
 
     task = ProvingTask(serialized_witness=[json.dumps(HOST_WITNESS["fibonacci"]).encode()])
-    before = msm.launches["bn254_msm_buckets"]
+    before = msm.launches["bn254_msm_chunks"]
     eps = {d: Prover(ProverConfig("fibonacci", stark=fast_test_config(), device=d))
            .gen_proof_universal(task, with_snark=True) for d in ("cuda", "cpu")}
-    assert msm.launches["bn254_msm_buckets"] > before
+    assert msm.launches["bn254_msm_chunks"] > before
     assert (eps["cuda"].proof, eps["cuda"].instances) == (eps["cpu"].proof, eps["cpu"].instances)
     for d in ("cuda", "cpu"):
         assert UniversalVerifier("fibonacci", fast_test_config(), device=d) \

@@ -24,6 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
+# each compile also passes `-Xptxas -v`: ptxas reports every kernel's
+# registers, stack and spills, kept beside the library (`ptxas_log`)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,7 +39,8 @@ SIGNATURES = {
     "p2_compress": [_P, _L, _I, _P, _P],
     "mont_matmul_rows": [_P, _P, _L, _I, _I, _P, _P],
     "mont_matmul_cols": [_P, _P, _L, _I, _I, _L, _P, _P, _P],
-    "bn254_msm_buckets": [_P, _P, _P, _L, _I, _I, _P, _P],
+    "bn254_msm_chunks": [_P, _P, _P, _L, _I, _P, _P, _P, _P],
+    "bn254_msm_reduce": [_P, _P, _L, _P, _P, _P, _P],
     "bn254_msm_window_sums": [_P, _I, _I, _I, _P, _P],
     "bn254_fq_mul": [_P, _P, _L, _P, _P],
 }
@@ -76,12 +79,14 @@ def build() -> Path:
     procs = []
     for src in cu:
         obj = BUILD_DIR / f"{src.stem}-{tag}-{os.getpid()}.o"  # per process
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c", str(src), "-o",
+               str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
+    failed, logs = [], []
     for src, obj, p in procs:
         log, _ = p.communicate()
+        logs.append(f"== {src.name}\n{log}")
         if p.returncode != 0:
             failed.append(f"{src.name}:\n{log}")
     if failed:
@@ -95,9 +100,15 @@ def build() -> Path:
         obj.unlink(missing_ok=True)
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    out.with_suffix(".ptxas.log").write_text("\n".join(logs))
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
+
+
+def ptxas_log() -> str:
+    """The `-Xptxas -v` lines of the library's build."""
+    return build().with_suffix(".ptxas.log").read_text()
 
 
 def lib() -> ctypes.CDLL:

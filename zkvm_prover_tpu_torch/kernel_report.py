@@ -9,6 +9,8 @@
   count, wide multiplies (IMAD.WIDE, IMAD.HI) and calls (a 64-bit division
   or remainder by a variable is a called routine) of each kernel of the
   built library (`cuobjdump`).
+- `ptxas_resources`: what `-Xptxas -v` said of each kernel at the build
+  (registers, stack frame, spill stores and loads).
 - `pipe_rates`: results per clock per SM of the integer instructions the
   kernels are made of (IMAD, IMAD.WIDE, IMAD.HI, IADD3), each alone and
   IMAD.HI with IADD3 interleaved, timed with `clock64()` on the card (the
@@ -36,11 +38,13 @@ ENTRY_KERNELS = {
     "p2_permute": ["permute_kernel"], "p2_hash_rows": ["hash_rows_kernel"],
     "p2_compress": ["compress_kernel"], "mont_matmul_rows": ["mm_rows_kernel"],
     "mont_matmul_cols": ["mm_cols_kernel", "mm_cols_finish"],
-    "bn254_msm_buckets": ["msm_buckets_kernel"],
-    "bn254_msm_window_sums": ["msm_window_sums_kernel"], "bn254_fq_mul": ["fq_mul_kernel"],
+    "bn254_msm_chunks": ["msm_chunks_kernel"], "bn254_msm_reduce": ["msm_reduce_kernel"],
+    "bn254_msm_window_sums": ["msm_window_sums_kernel"],
+    "bn254_fq_mul": ["fq_mul_kernel"],
 }
 # the entries of K4, which only the SNARK wrapper's commitments launch
-SNARK_ENTRIES = ("bn254_msm_buckets", "bn254_msm_window_sums", "bn254_fq_mul")
+SNARK_ENTRIES = ("bn254_msm_chunks", "bn254_msm_reduce", "bn254_msm_window_sums",
+                 "bn254_fq_mul")
 
 
 def short_name(name: str) -> str:
@@ -178,6 +182,22 @@ def kernel_resources(lib_path: str) -> dict:
     return {short_name(name): row for name, row in res.items()}
 
 
+def ptxas_resources(log: str) -> dict:
+    """{kernel: {"registers", "stack_bytes", "spill_stores", "spill_loads"}}
+    from a build's `-Xptxas -v` output (`_build.ptxas_log`)."""
+    out = {}
+    for part in re.split(r"Compiling entry function '", log)[1:]:
+        name = part.split("'", 1)[0]
+        props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        out[short_name(name)] = {
+            "registers": int(regs.group(1)) if regs else None,
+            **({"stack_bytes": int(props.group(1)), "spill_stores": int(props.group(2)),
+                "spill_loads": int(props.group(3))} if props else {})}
+    return out
+
+
 PIPE_PROBE = r"""
 #include <cstdint>
 #include <cstdio>
@@ -262,6 +282,7 @@ def main() -> None:
     probe_dir = str(_build.BUILD_DIR / "probe")
     print(json.dumps({"ops": op_counts(str(_build.CSRC), probe_dir),
                       "kernels": kernel_resources(lib),
+                      "ptxas": ptxas_resources(_build.ptxas_log()),
                       "pipes": pipe_rates(probe_dir)}, indent=1))
 
 
