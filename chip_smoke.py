@@ -37,12 +37,12 @@ at a shape some check of the run covered:
      chunk)), verify (True) and a tampered claimed sum (False); then a warm
      and a profiled machine proof;
   5. cross-device identity: a 2^10-row proof at fast_test_config(), a
-     small machine proof (four AIRs, three heights, a logUp bus), the
-     small rv32 proof (bench_guest_program(1, 4): 124 cycles, 18 AIRs) and
-     a fibonacci envelope from `Prover.gen_proof_stark` on cuda and on
-     cpu, each equal in every field but `stat` (the small rv32 proof's
-     kernel census, a profile that took 50-77 s here, is
-     tests/test_torch_gpu.py::test_small_rv32_kernel_census);
+     small machine proof (four AIRs, three heights, a logUp bus) and a
+     fibonacci envelope from `Prover.gen_proof_stark` on cuda and on cpu,
+     each equal in every field but `stat` (the small rv32 proof on cuda and
+     cpu, 47 s here, is tests/test_torch_gpu.py::
+     test_small_rv32_proof_cuda_equals_cpu, and its kernel census, a
+     profile that took 50-77 s, test_small_rv32_kernel_census);
   6. the rv32 machine path: the native executor built (g++), the benchmark
      guest bench_guest_program(8, 256) run (24,729 cycles) and traced (18
      AIRs); the kernel shapes of its proof checked against their plain
@@ -83,11 +83,12 @@ at a shape some check of the run covered:
      through `UniversalVerifier` (True) and with a flipped `user_pvs_proof`
      byte (False); a batch task whose KZG proof is tampered raises in
      execute with no launch; a second bundle call answered from the cache;
-  9. the ext guest: one secp256k1 ECDSA verification from --seed (w = 1/s
-     by modop DIV, u1 and u2 by modop MUL mod n, about 510 ec_double and
-     256 ec_add, x(R) revealed), keccak of the 64-byte Q, sha256 of 150
-     bytes, fp2 MUL / ADD / SUB over BN254 Fq and two defer calls: every
-     extension syscall family. x(R) mod n == r, the digests in RAM and
+  9. the ext guest: one secp256k1 ECDSA verification from --seed over
+     64-bit scalars (`ECDSA_SCALAR_BITS`; w = 1/s by modop DIV, u1 and u2
+     by modop MUL mod n, about 126 ec_double and 61 ec_add, x(R)
+     revealed), keccak of the 64-byte Q, sha256 of 150 bytes, fp2 MUL /
+     ADD / SUB over BN254 Fq and two defer calls: every extension syscall
+     family. x(R) mod n == r, the digests in RAM and
      DeferralVmAir's public values (the chain digest of the leaves) are
      checked on the host; the AIRs' heights and widths and the cells are
      printed; then, as in phase 6, the new kernel shapes of the proof
@@ -143,7 +144,24 @@ at a shape some check of the run covered:
      against the reference's combine, the whole against the host engine),
      with each entry's ms, plain ms and bound, and uniform scalars on the
      path's points at each size beside the wrap's MSMs;
- 13. the seconds of each phase, the kernels line (JSON; launches summed
+ 13. a chunk of real transactions: a chain built from --seed with the
+     port's `execution/` (a genesis of 1,024 funded EOAs, a token contract,
+     a contract that calls each precompile 0x01-0x08, the withdraw-queue
+     predeploy and the L1 gas-price oracle with its Curie scalars; three
+     blocks of 30 transactions, chained by parent hash: legacy and EIP-1559
+     transfers, token transfers, an L1 message a block, one contract
+     creation, one reverting call, the precompile call; each block sealed
+     by an oracle run over the full trie, its witness the partial trie that
+     run read); the precompiles' outputs against the host; its block
+     witnesses in a JSON chunk task at phase 7's version through phase 7's
+     Prover with the launch counts zeroed just before and read just after
+     (re-execution, timed apart from the guest, inside execute; the proof
+     on the card at default_config(); the self-verify), every C call at a
+     checked shape, every counter nonzero; the ChunkInfo against the
+     headers, `UniversalVerifier` True; a header's gas_used + 1, a claimed
+     post state root that execution contradicts and a transaction's claimed
+     sender changed each raise in execute with no launch;
+ 14. the seconds of each phase, the kernels line (JSON; launches summed
      over every path, and per path), the card line, and last the result
      line.
 The port imports no JAX; this script imports nothing of the JAX package.
@@ -759,7 +777,6 @@ def small_machine_cuda_equals_cpu(seed: int):
 
 
 RV32_GUEST = (8, 256)          # bench_guest_program(n_outer, n_inner): 24,729 cycles
-RV32_SMALL_GUEST = (1, 4)      # 124 cycles, the same 18 AIRs (phase 5)
 RV32_DATA_BASE = 0x3000
 
 
@@ -1044,14 +1061,19 @@ def rv32_cell(seed: int) -> dict:
                                   if type(a).__name__ == "PublicValuesAir")}
 
 
-def ecdsa_cell(seed: int) -> dict:
+# phase 9's ECDSA scalars: 64 bits, not 256, for the script's time (every
+# syscall family still runs; ~126 ec_double and ~61 ec_add, not ~510 and ~241)
+ECDSA_SCALAR_BITS = 64
+
+
+def ecdsa_cell(seed: int, scalar_bits: int = ECDSA_SCALAR_BITS) -> dict:
     """Phase 9: the ext guest, one secp256k1 ECDSA verification (key,
-    digest and nonce from `seed`; modop DIV and MUL mod n, about 510
-    ec_double and 256 ec_add) and then keccak of Q, sha256 of 150 bytes,
-    fp2 MUL / ADD / SUB over BN254 Fq and two defer calls: every extension
-    syscall family. Executed and traced; x(R) mod n == r, the keccak and
-    sha256 digests in RAM and DeferralVmAir's public values against the
-    host; then the checked proof at default_config()."""
+    digest and nonce from `seed`, scalars of `scalar_bits` bits; modop DIV
+    and MUL mod n, about 2 ec_double and 1 ec_add a bit) and then keccak of
+    Q, sha256 of 150 bytes, fp2 MUL / ADD / SUB over BN254 Fq and two defer
+    calls: every extension syscall family. Executed and traced; x(R) mod
+    n == r, the keccak and sha256 digests in RAM and DeferralVmAir's public
+    values against the host; then the checked proof at default_config()."""
     import hashlib
 
     from zkvm_prover_tpu_torch.models import rv32_v2
@@ -1060,7 +1082,7 @@ def ecdsa_cell(seed: int) -> dict:
     from zkvm_prover_tpu_torch.vm import executor, guests
 
     executor.build_native()
-    words, info = guests.ecdsa_verify_program(seed)
+    words, info = guests.ecdsa_verify_program(seed, scalar_bits=scalar_bits)
     ex = executor.Rv32Executor()
     ex.load_program(words)
     if ex.run(1 << 20) != executor.HALTED or ex.exit_code != 0:
@@ -1083,8 +1105,9 @@ def ecdsa_cell(seed: int) -> dict:
         "deferral digest": ([int(v) for v in defer_pvs]
                             == [int(v) for v in chain_digest_from_leaves(info["leaves"])]),
     }
-    print(f"[9] ECDSA guest (seed {seed}): {ex.cycles} cycles, {len(words)} words, "
-          f"{info['ec_doubles']} ec_double, {info['ec_adds']} ec_add; traces in "
+    print(f"[9] ECDSA guest (seed {seed}, {scalar_bits}-bit scalars): {ex.cycles} cycles, "
+          f"{len(words)} words, {info['ec_doubles']} ec_double, {info['ec_adds']} ec_add; "
+          f"traces in "
           f"{tracegen_s:.2f} s: {len(air_traces)} AIRs", flush=True)
     cells = print_airs(air_traces)
     print(f"[9] {cells} cells; {checks}", flush=True)
@@ -1096,28 +1119,6 @@ def ecdsa_cell(seed: int) -> dict:
     print(f"[9] {json.dumps(names)}", flush=True)
     return {**out, **names, "checks": checks, "trace_cells": cells,
             "airs": [[type(a).__name__, list(t.shape), len(p)] for a, t, p in air_traces]}
-
-
-def small_rv32_cuda_equals_cpu():
-    """The small keccak guest's 18-AIR proof at fast_test_config() on cuda
-    and on cpu: equal in every field but `stat`."""
-    import torch
-
-    from zkvm_prover_tpu_torch.stark import machine
-    from zkvm_prover_tpu_torch.stark.config import fast_test_config
-
-    air_traces, _ = rv32_air_traces(*RV32_SMALL_GUEST)
-    insts = [machine.AirInstance(a, t, p) for a, t, p in air_traces]
-    t0 = time.perf_counter()
-    p_cuda = machine.prove_machine(insts, fast_test_config(), device="cuda")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    p_cpu = machine.prove_machine(insts, fast_test_config(), device="cpu")
-    t2 = time.perf_counter()
-    proofs_equal(p_cuda, p_cpu)
-    if not machine.verify_machine([a for a, _, _ in air_traces], p_cuda, fast_test_config()):
-        raise AssertionError("the small rv32 proof does not verify")
-    return {"cuda_s": t1 - t0, "cpu_s": t2 - t1}
 
 
 def fibonacci_envelope_cuda_equals_cpu():
@@ -1135,11 +1136,11 @@ def fibonacci_envelope_cuda_equals_cpu():
 
 
 @contextlib.contextmanager
-def timed_calls(owner, name: str, describe=None):
+def timed_calls(owner, name: str, describe=None, keep: bool = False):
     """Time every call of `owner.name` (a module's function or a class's
     static or class method) while the block runs: the list it yields holds each
-    call's seconds, its result where that is a bool, and what
-    `describe(args, kwargs)` adds."""
+    call's seconds, its result where that is a bool (any result under "out"
+    with `keep`), and what `describe(args, kwargs)` adds."""
     original = owner.__dict__[name]
     kind = type(original) if isinstance(original, (staticmethod, classmethod)) else None
     fn = original.__func__ if kind else original
@@ -1150,6 +1151,7 @@ def timed_calls(owner, name: str, describe=None):
         out = fn(*args, **kwargs)
         calls.append({"s": time.perf_counter() - t0,
                       "result": out if isinstance(out, bool) else None,
+                      **({"out": out} if keep else {}),
                       **(describe(args, kwargs) if describe else {})})
         return out
 
@@ -2428,6 +2430,433 @@ def snark_cell(bundles, bundle_task, seed: int) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# 13. a re-executed chunk: real blocks, sealed and re-executed from witnesses
+# ---------------------------------------------------------------------------
+
+REEXEC_ACCOUNTS = 1024        # funded EOAs in the genesis
+REEXEC_SIGNERS = 32           # of which the chain holds the keys
+REEXEC_BLOCKS = 3
+REEXEC_TXS = 30               # transactions a block
+REEXEC_CHAIN_ID = 534352
+REEXEC_COINBASE = b"\xfe" * 20
+TOKEN_ADDRESS = b"\xc0\xde" + b"\x00" * 17 + b"\x01"
+PRECOMPILES_ADDRESS = b"\xc0\xde" + b"\x00" * 17 + b"\x02"
+# transfer(to: word 0, amount: word 1) over balances at slot = address:
+# revert if the caller's balance is short, else move the amount and LOG3
+# Transfer(caller, to) with the amount as data (the revert block sits at 3)
+TOKEN_PROLOGUE = bytes.fromhex("600756" "5b5f5ffd" "5b")
+TOKEN_BODY = bytes.fromhex(
+    "3354" "602035" "808210" "600357" "808203" "3355" "5f35" "8054" "8201" "9055" "5f52"
+    "5f35" "33" "7f")
+TOKEN_EPILOGUE = bytes.fromhex("60205f" "a3" "00")
+# the oracle's Curie-era slots (l1 base fee, blob base fee, commit and blob
+# scalars: the values of the reference's Curie test) and its pre-Curie ones
+ORACLE_SLOTS = {1: 10**9, 2: 2100, 3: 10**9, 5: 5 * 10**8, 6: 230_759_955_285,
+                7: 417_565_260}
+
+
+def execution_api(package: str = "zkvm_prover_tpu_torch"):
+    """The modules that build and re-execute blocks, from `package` (the
+    port by default; the CPU tests pass the JAX package's name to build the
+    same chain there)."""
+    import importlib
+    import types
+
+    names = {"blk": "execution.block", "mpt": "execution.mpt", "rlp": "execution.rlp",
+             "state": "execution.state", "keccak": "ops.keccak", "bn": "fields.bn254",
+             "curve": "types.chunk.crypto.weierstrass"}
+    return types.SimpleNamespace(**{k: importlib.import_module(f"{package}.{v}")
+                                    for k, v in names.items()})
+
+
+def address_of(api, priv: int) -> bytes:
+    c = api.curve.SECP256K1
+    q = c.mul(priv, c.generator())
+    return api.keccak.keccak256(q[0].to_bytes(32, "big") + q[1].to_bytes(32, "big"))[12:]
+
+
+def ecdsa_sign(api, digest: bytes, priv: int) -> tuple:
+    """(r, s, recovery id) with a deterministic nonce and low s."""
+    c = api.curve.SECP256K1
+    z = int.from_bytes(digest, "big") % c.n
+    k = int.from_bytes(api.keccak.keccak256(digest + priv.to_bytes(32, "big")), "big") % c.n
+    while True:
+        pt = c.mul(k, c.generator())
+        r = pt[0] % c.n
+        s = pow(k, c.n - 2, c.n) * (z + r * priv) % c.n
+        if r and s:
+            break
+        k += 1
+    rec = pt[1] & 1
+    if s > c.n // 2:
+        s, rec = c.n - s, rec ^ 1
+    return r, s, rec
+
+
+def sign_tx(api, tx, priv: int):
+    r, s, rec = ecdsa_sign(api, tx.sign_hash(), priv)
+    if tx.tx_type == 0:
+        tx.v = rec + 35 + 2 * tx.chain_id if tx.chain_id else rec + 27
+    else:
+        tx.v = rec
+    tx.r, tx.s = r, s
+    return tx
+
+
+def token_code(api) -> bytes:
+    topic = api.keccak.keccak256(b"Transfer(address,address,uint256)")
+    return TOKEN_PROLOGUE + TOKEN_BODY + topic + TOKEN_EPILOGUE
+
+
+def deploy_code(runtime: bytes) -> bytes:
+    """Initcode that returns `runtime`: CODECOPY it from offset 12, RETURN."""
+    n = len(runtime).to_bytes(2, "big")
+    return b"\x61" + n + b"\x60\x0c\x5f\x39\x61" + n + b"\x5f\xf3" + runtime
+
+
+def g1_bytes(p) -> bytes:
+    return p[0].to_bytes(32, "big") + p[1].to_bytes(32, "big")
+
+
+def precompile_cases(api, rng, signer: int) -> list:
+    """(address, input, expected output) for precompiles 0x01-0x08, the
+    output computed on the host another way than the precompile does."""
+    import hashlib
+
+    bn = api.bn
+    digest = rng.bytes(32)
+    r, s, rec = ecdsa_sign(api, digest, signer)
+    ecrec_in = digest + (27 + rec).to_bytes(32, "big") + r.to_bytes(32, "big") + s.to_bytes(32, "big")
+    blob = rng.bytes(100)
+    try:
+        ripemd = hashlib.new("ripemd160", blob).digest()
+    except ValueError:       # an OpenSSL without it: the port's own
+        from zkvm_prover_tpu_torch.types.chunk.crypto.ripemd160 import ripemd160
+        ripemd = ripemd160(blob)
+    b, e, m = (int.from_bytes(rng.bytes(32), "big") | 1 for _ in range(3))
+    a1, a2, k = (int.from_bytes(rng.bytes(16), "big") + 1 for _ in range(3))
+    p1, p2 = bn.g1_mul(bn.G1_GEN, a1), bn.g1_mul(bn.G1_GEN, a2)
+    q2 = bn.g2_mul(bn.G2_GEN, a2)
+
+    def g2_bytes(q):       # EIP-197: x_im, x_re, y_im, y_re
+        (xr, xi), (yr, yi) = q
+        return b"".join(v.to_bytes(32, "big") for v in (xi, xr, yi, yr))
+
+    pairing_in = (g1_bytes(p1) + g2_bytes(q2)
+                  + g1_bytes(bn.g1_neg(bn.g1_mul(bn.G1_GEN, a1 * a2 % bn.R)))
+                  + g2_bytes(bn.G2_GEN))
+    return [
+        (1, ecrec_in, bytes(12) + address_of(api, signer)),
+        (2, blob, hashlib.sha256(blob).digest()),
+        (3, blob, bytes(12) + ripemd),
+        (4, blob, blob),
+        (5, b"".join(v.to_bytes(32, "big") for v in (32, 32, 32, b, e, m)),
+         pow(b, e, m).to_bytes(32, "big")),
+        (6, g1_bytes(p1) + g1_bytes(p2), g1_bytes(bn.g1_mul(bn.G1_GEN, a1 + a2))),
+        (7, g1_bytes(p1) + k.to_bytes(32, "big"), g1_bytes(bn.g1_mul(bn.G1_GEN, a1 * k % bn.R))),
+        (8, pairing_in, (1).to_bytes(32, "big")),
+    ]
+
+
+def precompile_code(cases: list) -> bytes:
+    """For each case: CODECOPY its input to memory 0, STATICCALL the
+    precompile, store the success flag at slot 0x10 + address and keccak of
+    the return data at slot address; then STOP, then the inputs."""
+    def push2(v: int) -> bytes:
+        return b"\x61" + v.to_bytes(2, "big")
+
+    step = 31
+    offset = step * len(cases) + 1
+    code, data = b"", b""
+    for addr, inp, _ in cases:
+        n = len(inp)
+        code += (push2(n) + push2(offset + len(data)) + b"\x5f\x39"     # CODECOPY
+                 + b"\x5f\x5f" + push2(n) + b"\x5f\x60" + bytes([addr]) + b"\x5a\xfa"
+                 + b"\x60" + bytes([0x10 + addr]) + b"\x55"              # flag
+                 + b"\x3d\x5f\x5f\x3e\x3d\x5f\x20\x60" + bytes([addr]) + b"\x55")
+        data += inp
+    assert len(code) == step * len(cases)
+    return code + b"\x00" + data
+
+
+def build_chain(api, seed: int, accounts: int = REEXEC_ACCOUNTS, signers: int = REEXEC_SIGNERS,
+                blocks: int = REEXEC_BLOCKS, txs: int = REEXEC_TXS) -> dict:
+    """A genesis and `blocks` blocks of `txs` transactions each, all from
+    `seed`, built with `api` (`execution_api`). The genesis holds `accounts`
+    funded EOAs (the first `signers` with keys), the token contract with a
+    balance for each signer, the precompile contract, the withdraw-queue
+    predeploy with a nonzero slot 0 and the L1 gas-price oracle with its
+    Curie scalars set. Each block holds an L1 message, legacy (EIP-155) and
+    EIP-1559 transfers and token transfers; the chain holds one contract
+    creation, one reverting token call and the precompile call. Each block
+    is sealed by an oracle run over the full trie; its witness is the
+    partial trie of the accounts and slots that run read. Returns the
+    genesis root, the block witnesses, the oracle's receipts, the precompile
+    cases, the oracle's final state and the seconds of each step."""
+    import numpy as np
+
+    blk, mpt, rlp, st = api.blk, api.mpt, api.rlp, api.state
+    keccak256 = api.keccak.keccak256
+    rng = np.random.default_rng([seed, accounts, blocks, txs])
+    n_curve = api.curve.SECP256K1.n
+    t0 = time.perf_counter()
+    keys = [int.from_bytes(rng.bytes(32), "big") % n_curve or 1 for _ in range(signers)]
+    senders = [address_of(api, k) for k in keys]
+    others = [keccak256(b"eoa" + rng.bytes(8))[12:] for _ in range(accounts - signers)]
+    funded = senders + others
+    cases = precompile_cases(api, rng, keys[0])
+    codes = {}
+    trie = mpt.Mpt(mpt.EMPTY_ROOT)
+
+    def put(addr, acct):
+        trie.update(mpt.secure_key(addr), acct.rlp())
+
+    def storage_root(slots: dict) -> bytes:
+        t = mpt.Mpt(mpt.EMPTY_ROOT, trie.nodes)
+        for slot, val in slots.items():
+            t.update(mpt.secure_key(slot.to_bytes(32, "big")), rlp.encode_int(val))
+        return t.root
+
+    def contract(code: bytes, slots: dict):
+        h = keccak256(code)
+        codes[h] = code
+        return st.Account(nonce=1, code_hash=h, storage_root=storage_root(slots))
+
+    for addr in funded:
+        put(addr, st.Account(balance=10**18 + int(rng.integers(1 << 40))))
+    put(TOKEN_ADDRESS, contract(token_code(api), {int.from_bytes(a, "big"): 10**6
+                                                  for a in senders}))
+    put(PRECOMPILES_ADDRESS, contract(precompile_code(cases), {}))
+    # the predeploys at nonce 1: an account of storage alone counts as empty,
+    # and the first block's flush would delete it from the trie while the
+    # next block's re-execution still read its slots from the cache
+    put(blk.WITHDRAW_QUEUE_ADDRESS, st.Account(nonce=1, storage_root=storage_root(
+        {0: int.from_bytes(rng.bytes(32), "big") | 1})))
+    put(blk.L1_GAS_PRICE_ORACLE_ADDRESS,
+        st.Account(nonce=1, storage_root=storage_root(ORACLE_SLOTS)))
+    genesis_root = trie.root
+    genesis_s = time.perf_counter() - t0
+
+    nonces = [0] * signers
+    specials = ["create", "precompiles", "revert"]
+    witnesses, receipts_by_block = [], []
+    seconds = {"genesis_s": genesis_s, "signing_s": 0.0, "sealing_s": 0.0, "witness_s": 0.0}
+    parent = rng.bytes(32)
+    state_root, nodes = genesis_root, trie.nodes
+    for b in range(blocks):
+        t0 = time.perf_counter()
+        number = 1000 + b
+        plan = ["l1"] + [s for i, s in enumerate(specials) if i % blocks == b]
+        plan += [("legacy", "eip1559", "token")[i % 3] for i in range(txs - len(plan))]
+        block_txs = []
+        for j, kind in enumerate(plan):
+            if kind == "l1":
+                block_txs.append(blk.Tx(tx_type=blk.L1_MSG_TX_TYPE, nonce=b, gas_limit=100_000,
+                                        to=funded[int(rng.integers(accounts))], value=0,
+                                        data=rng.bytes(8),
+                                        sender=keccak256(b"l1" + rng.bytes(8))[12:]))
+                continue
+            i = (b * txs + j) % signers
+            to = (funded[int(rng.integers(accounts))] if rng.integers(4)
+                  else keccak256(b"new" + rng.bytes(8))[12:])
+            tx = blk.Tx(tx_type=2, nonce=nonces[i], gas_limit=100_000, to=to,
+                        value=int(rng.integers(1, 10**9)), data=b"", max_fee=100,
+                        max_priority_fee=2, chain_id=REEXEC_CHAIN_ID)
+            if kind == "legacy":
+                tx = blk.Tx(tx_type=0, nonce=nonces[i], gas_limit=21_000, to=to,
+                            value=int(rng.integers(1, 10**9)), data=b"", gas_price=10,
+                            chain_id=REEXEC_CHAIN_ID)
+            elif kind == "eip1559":
+                tx.gas_limit = 21_000
+            elif kind in ("token", "revert"):
+                amount = 10**30 if kind == "revert" else int(rng.integers(1, 1000))
+                tx.to, tx.value = TOKEN_ADDRESS, 0
+                tx.data = bytes(12) + to + amount.to_bytes(32, "big")
+            elif kind == "create":
+                tx.to, tx.value, tx.gas_limit = None, 0, 500_000
+                tx.data = deploy_code(token_code(api))
+            elif kind == "precompiles":
+                tx.to, tx.value, tx.gas_limit = PRECOMPILES_ADDRESS, 0, 1_500_000
+            block_txs.append(sign_tx(api, tx, keys[i]))
+            # a creation moves the sender's nonce twice: once for the
+            # transaction, once for CREATE (as the reference's interpreter does)
+            nonces[i] += 2 if kind == "create" else 1
+        t1 = time.perf_counter()
+        seconds["signing_s"] += t1 - t0
+
+        state = st.WorldState(state_root, dict(nodes), dict(codes))
+        ctx = api.blk.BlockCtx(number=number, timestamp=1_700_000_000 + number,
+                               coinbase=REEXEC_COINBASE, gas_limit=30_000_000, base_fee=1,
+                               chain_id=REEXEC_CHAIN_ID,
+                               block_hashes={number - 1: parent})
+        receipts, gas = [], 0
+        for tx in block_txs:
+            receipt, used = blk.execute_tx(state, ctx, tx, gas)
+            gas += used
+            receipts.append(receipt)
+        post_root = state.state_root()
+        header = blk.Header(
+            parent_hash=parent, coinbase=REEXEC_COINBASE, state_root=post_root,
+            transactions_root=blk._ordered_trie_root([t.encode() for t in block_txs]),
+            receipts_root=blk._ordered_trie_root([r.encode() for r in receipts]),
+            number=number, gas_limit=30_000_000, gas_used=gas,
+            timestamp=1_700_000_000 + number, base_fee_per_gas=1)
+        t2 = time.perf_counter()
+        seconds["sealing_s"] += t2 - t1
+
+        # the witness: every trie path the oracle run read, in the pre-state,
+        # and the withdraw root's, which the chunk reads after its last block
+        pre = mpt.Mpt(state_root, nodes)
+        witness_nodes = {}
+        for addr in dict.fromkeys([*state.accounts, blk.WITHDRAW_QUEUE_ADDRESS]):
+            for n in pre.collect_path_nodes(mpt.secure_key(addr)):
+                witness_nodes[keccak256(n)] = n
+        for addr, slot in dict.fromkeys([*state.storage, (blk.WITHDRAW_QUEUE_ADDRESS,
+                                                          blk.WITHDRAW_ROOT_SLOT)]):
+            raw = pre.get(mpt.secure_key(addr))
+            if raw is None:
+                continue
+            storage = mpt.Mpt(st.Account.from_rlp(raw).storage_root, nodes)
+            for n in storage.collect_path_nodes(mpt.secure_key(slot.to_bytes(32, "big"))):
+                witness_nodes[keccak256(n)] = n
+        receipts_by_block.append(receipts)
+        witnesses.append(blk.BlockWitness(header=header, txs=block_txs,
+                                          state_nodes=witness_nodes, codes=dict(codes),
+                                          chain_id=REEXEC_CHAIN_ID))
+        seconds["witness_s"] += time.perf_counter() - t2
+        parent, state_root = header.block_hash(), post_root
+        nodes, codes = state.trie.nodes, state.codes
+    return {"genesis_root": genesis_root, "witnesses": witnesses, "receipts": receipts_by_block,
+            "cases": cases, "state": state, "funded": funded, "senders": senders, **seconds}
+
+
+def precompile_results(api, chain) -> dict:
+    """Each precompile's flag and output hash in the final state against the
+    host's output."""
+    state = chain["state"]
+    return {addr: (state.get_storage(PRECOMPILES_ADDRESS, 0x10 + addr) == 1
+                   and state.get_storage(PRECOMPILES_ADDRESS, addr)
+                   == int.from_bytes(api.keccak.keccak256(out), "big"))
+            for addr, _, out in chain["cases"]}
+
+
+def reexec_task(chunks, chain, tag: str, doc: dict = None):
+    """The chunk task of `chain`'s block witnesses at phase 7's version
+    (`Version.galileo_v2()`), or of `doc`, its witness JSON, as given."""
+    from zkvm_prover_tpu_torch.circuits.chunk_circuit import ChunkCircuit
+    from zkvm_prover_tpu_torch.host import ProvingTask
+    from zkvm_prover_tpu_torch.types.chunk.witness import ChunkWitness
+
+    if doc is None:
+        w = ChunkWitness(version=chunks.version.as_version_byte(), blocks=[],
+                         prev_msg_queue_hash=b"\x00" * 32, fork_name=chunks.version.fork,
+                         prev_state_root=chain["genesis_root"], chain_id=REEXEC_CHAIN_ID,
+                         block_witnesses=chain["witnesses"])
+        raw = ChunkCircuit.serialize_witness(w)
+    else:
+        raw = json.dumps(doc, sort_keys=True).encode()
+    return ProvingTask(serialized_witness=[raw], fork_name=chunks.version.fork.value,
+                       identifier=f"reexec-{tag}", vk=chunks.prover.get_app_vk())
+
+
+def reexec_cell(chunks, seed: int) -> dict:
+    """Phase 13: a chunk of real transactions. The chain of `build_chain`
+    (a 1,024-account genesis, three sealed blocks of 30 transactions) from
+    `seed`, with the port's modules; its witnesses in a JSON chunk task at
+    phase 7's version through phase 7's Prover with the launch counts zeroed
+    just before and read just after: re-execution (timed apart from the
+    guest) inside execute, the proof on the card at default_config(), the
+    self-verify; every C call at a checked shape, every counter nonzero.
+    The ChunkInfo against the headers, the precompiles' outputs against the
+    host, `UniversalVerifier` True; a header's gas_used + 1, a claimed post
+    state root that execution contradicts and a signed transaction's
+    claimed sender changed to another funded account each raise in execute
+    with no launch."""
+    import torch
+
+    from zkvm_prover_tpu_torch.circuits.chunk_circuit import ChunkCircuit
+    from zkvm_prover_tpu_torch.execution.block import ExecutionError
+    from zkvm_prover_tpu_torch.host import UniversalVerifier
+
+    api = execution_api()
+    chain = build_chain(api, seed)
+    ws = chain["witnesses"]
+    n_txs = sum(len(w.txs) for w in ws)
+    n_nodes = sum(len(w.state_nodes) for w in ws)
+    n_bytes = sum(len(n) for w in ws for n in w.state_nodes.values())
+    precompiles = precompile_results(api, chain)
+    print(f"[13] chain from seed {seed}: genesis of {REEXEC_ACCOUNTS} funded EOAs in "
+          f"{chain['genesis_s']:.2f} s; {len(ws)} blocks, {n_txs} transactions (signed in "
+          f"{chain['signing_s']:.2f} s), sealed in {chain['sealing_s']:.2f} s; witnesses of "
+          f"{n_nodes} trie nodes, {n_bytes} bytes (collected in {chain['witness_s']:.2f} s); "
+          f"precompile outputs equal to the host's: {precompiles}", flush=True)
+    if not all(precompiles.values()):
+        raise AssertionError(f"a precompile's output differs from the host's: {precompiles}")
+
+    task = reexec_task(chunks, chain, "chunk")
+    with timed_calls(ChunkCircuit, "validate", keep=True) as validated:
+        env, measured = prove_task("13", chunks.prover, task)
+    (run,) = validated
+    info, version = run["out"]
+    reexec_s = run["s"]
+    guest_s = measured["execute_ms"] / 1e3 - reexec_s
+    last = ws[-1].header
+    checks = {"prev state root": info.prev_state_root == chain["genesis_root"],
+              "post state root": info.post_state_root == last.state_root,
+              "post block hash": info.post_blockhash == last.block_hash(),
+              "transactions": [c.num_txs for c in info.block_ctxs] == [len(w.txs) for w in ws],
+              "L1 messages": [c.num_l1_msgs for c in info.block_ctxs] == [1] * len(ws),
+              "pi hash": env.user_pvs_proof == info.pi_hash_by_version(version)}
+    cfg = chunks.stark
+    t0 = time.perf_counter()
+    ok = UniversalVerifier("chunk", cfg).verify_stark_proof(env)
+    verify_s = time.perf_counter() - t0
+    print(f"[13] re-execution {reexec_s:.3f} s, guest (execute less re-execution) "
+          f"{guest_s:.3f} s; ChunkInfo checks {checks}; UniversalVerifier: {ok} in "
+          f"{verify_s:.3f} s", flush=True)
+    if not ok or not all(checks.values()):
+        raise AssertionError("the re-executed chunk's phase failed")
+
+    doc = json.loads(task.serialized_witness[0])
+    first = doc["block_witnesses"][0]
+    signed = next(t for t in first["txs"] if t["tx_type"] != 0x7E)
+    other = next(a for a in chain["senders"] if a.hex() != signed["sender"])
+    tampers = {"header gas_used + 1": (ExecutionError, "gas_used mismatch"),
+               "claimed post state root": (ValueError, "claimed post_state_root"),
+               "claimed sender": (ValueError, "claimed sender")}
+    report_tampers = {}
+    for name, (kind, message) in tampers.items():
+        bad = copy.deepcopy(doc)
+        if name == "header gas_used + 1":
+            bad["block_witnesses"][0]["header"]["gas_used"] += 1
+        elif name == "claimed post state root":
+            bad["post_state_root"] = ws[0].header.state_root.hex()
+        else:
+            tx = next(t for t in bad["block_witnesses"][0]["txs"] if t["tx_type"] != 0x7E)
+            tx["sender"] = other.hex()
+        reset_counts()
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            chunks.prover.gen_proof_stark(reexec_task(chunks, chain, name.replace(" ", "-"), bad))
+        except kind as e:
+            raised = str(e)
+        launches = sum(launch_counts().values())
+        print(f"[13] {name}: raised {raised!r} in {time.perf_counter() - t0:.3f} s, "
+              f"{launches} launches", flush=True)
+        if raised is None or message not in raised or launches:
+            raise AssertionError(f"the chunk with its {name} changed was not rejected in execute")
+        report_tampers[name] = raised
+    torch.cuda.empty_cache()
+    return {"blocks": len(ws), "transactions": n_txs, "witness_nodes": n_nodes,
+            "witness_bytes": n_bytes, **{k: chain[k] for k in (
+                "genesis_s", "signing_s", "sealing_s", "witness_s")},
+            "reexecution_s": reexec_s, "guest_s": guest_s, **measured,
+            "verify_s": verify_s, "checks": checks, "precompiles": precompiles,
+            "tampers": report_tampers}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=18,
@@ -2602,10 +3031,6 @@ def main() -> int:
     small_machine_cuda_equals_cpu(args.seed + 2)
     print("[5] small machine proofs (4 AIRs, 3 heights, a logUp bus) on cuda and cpu "
           "are identical", flush=True)
-    report["small_rv32"] = small_rv32_cuda_equals_cpu()
-    print(f"[5] small rv32 proofs (bench_guest_program{RV32_SMALL_GUEST}, 18 AIRs) on cuda "
-          f"({report['small_rv32']['cuda_s']:.1f} s) and cpu "
-          f"({report['small_rv32']['cpu_s']:.1f} s) are identical", flush=True)
     fibonacci_envelope_cuda_equals_cpu()
     print("[5] fibonacci envelopes from Prover.gen_proof_stark on cuda and cpu are identical",
           flush=True)
@@ -2639,10 +3064,16 @@ def main() -> int:
     report["snark"] = snark_cell(bundles, bundle_task, args.seed + 9)
     phase_done(12)
 
-    # 13. the kernels line: per kernel, its largest main-path shape; launches
-    # summed over the nine STARK paths (single-AIR proof, machine cell, rv32,
-    # chunk, batch, bundle, ext guest, deferred aggregation, continuations),
-    # then K4's three entries, which only the SNARK path launches
+    # 13. a chunk of real transactions, re-executed and proved through phase
+    # 7's Prover
+    report["reexec"] = reexec_cell(chunks, args.seed + 10)
+    phase_done(13)
+
+    # 14. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the ten STARK paths (single-AIR proof, machine cell, rv32,
+    # chunk, batch, bundle, ext guest, deferred aggregation, continuations,
+    # the re-executed chunk), then K4's three entries, which only the SNARK
+    # path launches
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -2661,6 +3092,7 @@ def main() -> int:
                    "ecdsa": report["ecdsa"]["launches"][row["counter"]],
                    "deferred": report["deferred"]["launches"][row["counter"]],
                    "continuations": report["continuations"]["launches"][row["counter"]],
+                   "reexec": report["reexec"]["launches"][row["counter"]],
                    "snark": 0}
         entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
@@ -2681,7 +3113,7 @@ def main() -> int:
                      "shape": f"n={path['n']} c={path['c']} W={path['windows']} m={path['m']}",
                      "fq_products": path["fq_products"][name]})
     report["total_s"] = time.perf_counter() - t_all
-    print(f"[13] seconds by phase: "
+    print(f"[14] seconds by phase: "
           + ", ".join(f"{n}: {t:.1f}" for n, t in report["phase_s"].items())
           + f"; total {report['total_s']:.1f} s", flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -561,6 +561,43 @@ def test_host_prover_defaults_to_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# a re-executed chunk (zkvm_prover_tpu_torch/execution)
+# ---------------------------------------------------------------------------
+
+
+def test_reexecuted_chunk_cuda_equals_cpu(cuda):
+    """One block of real transactions (`chip_smoke.build_chain` from a seed:
+    16 funded EOAs, 8 transactions with the L1 message, the contract
+    creation, the precompile call and the reverting call) in a chunk task,
+    re-executed and proved at fast_test_config() on cuda and on cpu: the
+    envelopes are equal in every field but `stat`."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from zkvm_prover_tpu_torch.circuits.chunk_circuit import ChunkCircuit
+    from zkvm_prover_tpu_torch.host import Prover, ProverConfig, ProvingTask
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+    from zkvm_prover_tpu_torch.types.base.version import Version
+    from zkvm_prover_tpu_torch.types.chunk.witness import ChunkWitness
+
+    chain = chip_smoke.build_chain(chip_smoke.execution_api(), 5, accounts=16, signers=4,
+                                   blocks=1, txs=8)
+    version = Version.galileo_v2()
+    w = ChunkWitness(version=version.as_version_byte(), blocks=[],
+                     prev_msg_queue_hash=b"\x00" * 32, fork_name=version.fork,
+                     prev_state_root=chain["genesis_root"], chain_id=chip_smoke.REEXEC_CHAIN_ID,
+                     block_witnesses=chain["witnesses"])
+    task = ProvingTask(serialized_witness=[ChunkCircuit.serialize_witness(w)])
+    a, b = (Prover(ProverConfig("chunk", stark=fast_test_config(), device=device))
+            .gen_proof_stark(task) for device in ("cuda", "cpu"))
+    for name in ("proof", "user_pvs_proof", "baseline", "deferral_merkle_proofs"):
+        assert getattr(a, name) == getattr(b, name), name
+    assert a.stat.total_cycles == b.stat.total_cycles
+
+
+# ---------------------------------------------------------------------------
 # recursion (zkvm_prover_tpu_torch/recursion)
 # ---------------------------------------------------------------------------
 

@@ -441,19 +441,6 @@ def test_with_snark_raises(monkeypatch, tmp_path):
     assert hit.value.args == (prover.get_app_vk(), env.proof, env.user_pvs_proof, "cpu")
 
 
-def test_chunk_witness_with_block_witnesses_raises(chunks):
-    w = copy.deepcopy(chunks[1].witness(0))
-    raw = json.loads(ChunkCircuit.serialize_witness(w))
-    w.block_witnesses = [object()]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ChunkCircuit.validate(w)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ChunkCircuit.serialize_witness(w)
-    raw["block_witnesses"] = [{"header": {}}]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ChunkCircuit.deserialize_witness(json.dumps(raw).encode())
-
-
 @pytest.mark.parametrize("what", ["agg_children", "deferral_discharge", "evm_proof"])
 def test_unported_verifier_paths_raise(proven, what):
     """A malformed EvmProof gives False (before any key is built). A forged
@@ -502,6 +489,8 @@ import zkvm_prover_tpu_torch.models.rv32_continuations
 import zkvm_prover_tpu_torch.snark.wrapper, zkvm_prover_tpu_torch.snark.verifier_contract
 import zkvm_prover_tpu_torch.snark.evm, zkvm_prover_tpu_torch.ops.msm
 import zkvm_prover_tpu_torch.fields.bn254_native
+import zkvm_prover_tpu_torch.execution, zkvm_prover_tpu_torch.types.chunk.crypto
+import zkvm_prover_tpu_torch.types.chunk.crypto.validium
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "cryptography", "zkvm_prover_tpu")]
 print("clean")
 """

@@ -21,8 +21,11 @@ Layout (the reference's module names, PyTorch inside):
   host/      the entry point: proving tasks, apps, Prover (disk cache,
              self-verify), UniversalVerifier, the proof envelope and codec
   types/, circuits/, integration/
-             Scroll public-input types, the chunk circuit, the chunk task
+             Scroll public-input types (with the chunk's secp256k1 / P-256,
+             ECIES and validium crypto), the chunk circuit, the chunk task
              generator
+  execution/ stateless re-execution of a chunk's block witnesses: RLP, the
+             partial Merkle-Patricia trie, the EVM, blocks (host python)
   snark/     the BN254 PLONK wrapper: the EvmProof, its verifier bytecode and
              the mini-EVM that runs it (host ints; MSMs on the card)
   utils/     python-int extension arithmetic for the host verifier

@@ -2,10 +2,10 @@
 crates/circuits/chunk-circuit/src/{main.rs:14-29, circuit.rs:27-50}):
 deserialize witness -> execute/fold -> (ChunkInfo, Version) -> pi hash.
 
-The reference's `zkvm_prover_tpu/circuits/chunk_circuit.py` on the summary
-path. A witness that carries block witnesses (stateless re-execution)
-raises `NotImplementedError` until `execution/` is ported (ROADMAP Queue 1
-item 4b)."""
+The reference's `zkvm_prover_tpu/circuits/chunk_circuit.py`: a witness
+that carries block witnesses crosses as JSON (headers, transactions, the
+partial trie's nodes and the code preimages) and is re-executed by
+`validate`."""
 
 from __future__ import annotations
 
@@ -19,9 +19,6 @@ from ..types.chunk.witness import (
 )
 from ..types.base.fork_name import ForkName
 from .circuit import Circuit
-
-_NO_EXECUTION = ("ROADMAP Queue 1 item 4b: witnesses with block witnesses need "
-                 "execution/ (stateless re-execution)")
 
 
 def _b(s: str) -> bytes:
@@ -59,14 +56,14 @@ class ChunkCircuit(Circuit):
             ],
         }
         if w.block_witnesses:
-            raise NotImplementedError(_NO_EXECUTION)
+            d["block_witnesses"] = [
+                _encode_block_witness(bw) for bw in w.block_witnesses
+            ]
         return json.dumps(d, sort_keys=True).encode()
 
     @classmethod
     def deserialize_witness(cls, witness_bytes: bytes) -> ChunkWitness:
         d = json.loads(witness_bytes.decode())
-        if d.get("block_witnesses"):
-            raise NotImplementedError(_NO_EXECUTION)
         return ChunkWitness(
             version=d["version"],
             fork_name=ForkName.from_str(d["fork_name"]),
@@ -91,6 +88,10 @@ class ChunkCircuit(Circuit):
                 )
                 for b in d["blocks"]
             ],
+            block_witnesses=[
+                _decode_block_witness(bw)
+                for bw in d.get("block_witnesses", [])
+            ] or None,
         )
 
     @classmethod
@@ -103,3 +104,80 @@ class ChunkCircuit(Circuit):
         info = execute_and_fold(witness)
         return info, version
 
+
+# --- BlockWitness JSON codec ----------------------------------------------
+
+def _encode_block_witness(bw) -> dict:
+    h = bw.header
+    return {
+        "header": {
+            "parent_hash": h.parent_hash.hex(),
+            "coinbase": h.coinbase.hex(),
+            "state_root": h.state_root.hex(),
+            "transactions_root": h.transactions_root.hex(),
+            "receipts_root": h.receipts_root.hex(),
+            "number": h.number,
+            "gas_limit": h.gas_limit,
+            "gas_used": h.gas_used,
+            "timestamp": h.timestamp,
+            "base_fee_per_gas": h.base_fee_per_gas,
+            "extra_data": h.extra_data.hex(),
+        },
+        "txs": [
+            {
+                "tx_type": t.tx_type,
+                "nonce": t.nonce,
+                "gas_limit": t.gas_limit,
+                "to": t.to.hex() if t.to else None,
+                "value": t.value,
+                "data": t.data.hex(),
+                "gas_price": t.gas_price,
+                "max_fee": t.max_fee,
+                "max_priority_fee": t.max_priority_fee,
+                "chain_id": t.chain_id,
+                "v": t.v, "r": t.r, "s": t.s,
+                "sender": t.sender.hex() if t.sender else None,
+            }
+            for t in bw.txs
+        ],
+        "state_nodes": [n.hex() for n in bw.state_nodes.values()],
+        "codes": [c.hex() for c in bw.codes.values()],
+        "chain_id": bw.chain_id,
+    }
+
+
+def _decode_block_witness(d: dict):
+    from ..execution.block import BlockWitness, Header, Tx
+    from ..ops.keccak import keccak256
+
+    h = d["header"]
+    header = Header(
+        parent_hash=_b(h["parent_hash"]),
+        coinbase=_b(h["coinbase"]),
+        state_root=_b(h["state_root"]),
+        transactions_root=_b(h["transactions_root"]),
+        receipts_root=_b(h["receipts_root"]),
+        number=h["number"],
+        gas_limit=h["gas_limit"],
+        gas_used=h["gas_used"],
+        timestamp=h["timestamp"],
+        base_fee_per_gas=h["base_fee_per_gas"],
+        extra_data=_b(h.get("extra_data", "")),
+    )
+    txs = [
+        Tx(
+            tx_type=t["tx_type"], nonce=t["nonce"],
+            gas_limit=t["gas_limit"],
+            to=_b(t["to"]) if t["to"] else None,
+            value=t["value"], data=_b(t["data"]),
+            gas_price=t["gas_price"], max_fee=t["max_fee"],
+            max_priority_fee=t["max_priority_fee"],
+            chain_id=t["chain_id"], v=t["v"], r=t["r"], s=t["s"],
+            sender=_b(t["sender"]) if t["sender"] else None,
+        )
+        for t in d["txs"]
+    ]
+    nodes = {keccak256(_b(n)): _b(n) for n in d["state_nodes"]}
+    codes = {keccak256(_b(c)): _b(c) for c in d["codes"]}
+    return BlockWitness(header=header, txs=txs, state_nodes=nodes,
+                        codes=codes, chain_id=d["chain_id"])

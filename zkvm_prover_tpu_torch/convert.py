@@ -3,8 +3,8 @@
 The system has no weights. What crosses between the two packages is the
 Poseidon2 round-constant tables, the traces (plain numpy, shared as they
 are), the proofs (a deferred envelope crosses as JSON, like every other
-envelope; a continuation segment's proof as a machine proof), the batch
-and bundle witnesses, and the SNARK wrapper's SRS, PLONK keys and
+envelope; a continuation segment's proof as a machine proof), the chunk
+(with its block witnesses), batch and bundle witnesses, and the SNARK wrapper's SRS, PLONK keys and
 EvmProofs (python ints and bytes, so one reference key build serves both
 packages' tests). Nothing here imports
 the reference: proofs are read by duck typing, from any object with the
@@ -117,6 +117,7 @@ _WITNESS_MODULES = (
     "types.base.chunk", "types.base.batch", "types.base.bundle",
     "types.chunk.types", "types.chunk.witness", "types.batch.header",
     "types.batch.witness", "types.bundle.witness", "circuits.batch_circuit",
+    "execution.block",
 )
 
 
@@ -134,8 +135,9 @@ def witness_classes() -> dict:
 
 def rebuild(obj, classes: dict):
     """`obj` rebuilt with `classes[type name]` for every dataclass and enum
-    in it, field by field; lists, tuples, bytes, ints, strings and None are
-    carried as they are. A class or field missing on either side raises."""
+    in it, field by field; lists, tuples, dicts, bytes, ints, strings and
+    None are carried as they are. A class or field missing on either side
+    raises."""
     if isinstance(obj, enum.Enum) or dataclasses.is_dataclass(obj):
         name = type(obj).__name__
         if name not in classes:
@@ -152,6 +154,8 @@ def rebuild(obj, classes: dict):
         return obj
     if isinstance(obj, (list, tuple)):
         return type(obj)(rebuild(x, classes) for x in obj)
+    if isinstance(obj, dict):
+        return {rebuild(k, classes): rebuild(v, classes) for k, v in obj.items()}
     raise TypeError(f"cannot rebuild a {type(obj).__name__}")
 
 

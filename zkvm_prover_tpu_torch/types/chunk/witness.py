@@ -2,11 +2,10 @@
 crates/types/chunk/src/scroll/witness.rs:12-143 and execute.rs:21-91).
 
 `BlockExecutionSummary` stands in for the output of stateless block
-re-execution (the sbv/revm layer); everything from the summaries to the
-ChunkInfo (digests, rolling hashes, chaining) is here, as in the
-reference's `zkvm_prover_tpu/types/chunk/witness.py`. Re-executing a
-witness's `block_witnesses` waits for the port of `execution/` (ROADMAP
-Queue 1) and raises `NotImplementedError`.
+re-execution (the sbv/revm layer, `execution/`), which `execute_and_fold`
+runs when the witness carries block witnesses; everything from the
+summaries to the ChunkInfo (digests, rolling hashes, chaining) is here, as
+in the reference's `zkvm_prover_tpu/types/chunk/witness.py`.
 """
 
 from __future__ import annotations
@@ -65,12 +64,26 @@ class ChunkWitness:
 
 
 def execute_and_fold(witness: "ChunkWitness") -> ChunkInfo:
-    """The execute() analog (execute.rs:21-91): fold the block summaries
-    into ChunkInfo. A witness that carries block witnesses would be
-    re-executed first; that waits for `execution/`."""
+    """The full execute() analog (execute.rs:21-91): when the witness
+    carries block witnesses, run stateless re-execution to derive the
+    summaries and state/withdraw roots; then fold into ChunkInfo. A claimed
+    post state or withdraw root that re-execution contradicts raises
+    `ValueError` (the reference asserts)."""
     if witness.block_witnesses:
-        raise NotImplementedError(
-            "ROADMAP Queue 1 item 4b: re-executing block witnesses needs execution/")
+        from ...execution.block import execute_chunk_blocks
+
+        summaries, pre, post, wroot = execute_chunk_blocks(
+            witness.block_witnesses, witness.prev_state_root
+        )
+        if witness.post_state_root not in (B256_ZERO, post):
+            raise ValueError("claimed post_state_root contradicts re-execution")
+        if witness.withdraw_root not in (B256_ZERO, wroot):
+            raise ValueError("claimed withdraw_root contradicts re-execution")
+        witness.blocks = summaries
+        witness.post_state_root = post
+        witness.withdraw_root = wroot
+        witness.prev_blockhash = \
+            witness.block_witnesses[0].header.parent_hash
     return chunk_info_from_execution(witness)
 
 
