@@ -51,7 +51,9 @@ at a shape some check of the run covered:
      the proof at a checked shape: guest_cycles, tracegen_s, proof_wall_s,
      proving_khz, per-phase ms, peak memory, the values `ood` observed,
      verify_wall_s (True) and a tampered public value (False);
-  7. the host entry point: ChunkTaskGenerator(stark=default_config()) with
+  7. the host entry point: ChunkTaskGenerator(stark=chain_config()), that
+     is default_config() at 25 FRI queries (`CHAIN_QUERIES`; phases 8, 12
+     and 13 prove at it too), with
      its proof cache in a fresh build/chip_smoke_chunk/; the chunk
      machine's new kernel shapes (18 AIRs, from its executed traces)
      checked against their plain versions; `Prover.gen_proof_stark` on chunk 0
@@ -63,7 +65,7 @@ at a shape some check of the run covered:
      second call answered from the cache with no launch and an equal
      envelope;
   8. the batch and bundle layers: the batch through
-     `Prover(ProverConfig("batch", stark=default_config()))`, whose default
+     `Prover(ProverConfig("batch", stark=chain_config()))`, whose default
      child verification is in-circuit, over BatchTaskGenerator's task 0 (1
      chunk a batch, over phase 7's chunk 0 envelope after a JSON round
      trip): with the launch counts zeroed just before, `gen_proof_stark`
@@ -156,14 +158,33 @@ at a shape some check of the run covered:
      witnesses in a JSON chunk task at phase 7's version through phase 7's
      Prover with the launch counts zeroed just before and read just after
      (re-execution, timed apart from the guest, inside execute; the proof
-     on the card at default_config(); the self-verify), every C call at a
+     on the card at chain_config(); the self-verify), every C call at a
      checked shape, every counter nonzero; the ChunkInfo against the
      headers, `UniversalVerifier` True; a header's gas_used + 1, a claimed
      post state root that execution contradicts and a transaction's claimed
      sender changed each raise in execute with no launch;
- 14. the seconds of each phase, the kernels line (JSON; launches summed
-     over every path, and per path), the card line, and last the result
-     line.
+ 14. parallel/ on a mesh of 4 logical shards of cuda:0: (a)
+     `make_prover_core` and `make_prover_core_sharded` on phase 3's
+     Poseidon2Air trace at default_config() with three challenges from
+     --seed, each run once to collect its C calls, the shapes new to the
+     run checked against their plain versions (`check_calls`), then run
+     again with the launch counts zeroed just before and read just after
+     (wall-clock, peak, launches; every C call at a checked shape); their
+     four outputs equal bit for bit; (b) the sharded four-step NTT at
+     (2^20, 8) and (2^22, 2), `commit_root_sharded` at (2^19, 495) and
+     `fold_round_sharded` at 2^20 rows against their single-device
+     functions; (c) two fibonacci children (log_n 3) and one leaf node over
+     them proved here at fast_test_config() with the counts zeroed, then
+     `RecursiveAggregationProver.aggregate([p1, p2, p1, p2], workers=2)`:
+     two leaf nodes proved by two spawned workers on cuda:0, each
+     byte-equal to the serial one, each worker reporting the launches and
+     C calls of its own task (counters zeroed at its start): every call at
+     a checked shape, its proving launches equal to the serial leaf's;
+     the root proved here, verified, its digest the node digest over the
+     two leaves; the pool's leaf level against the serial leaf's seconds;
+ 15. the seconds of each phase, the kernels line (JSON; launches summed
+     over every path, and per path; the pool path's are its workers'),
+     the card line, and last the result line.
 The port imports no JAX; this script imports nothing of the JAX package.
 """
 
@@ -467,30 +488,12 @@ def restore_counts(snapshot) -> None:
         d.update(saved)
 
 
-@contextlib.contextmanager
 def log_calls():
     """Log every kernel entry point's C call, (entry, args), in order, into
-    the list it yields: the loaded library's functions are wrapped while the
-    block runs."""
+    the list it yields (`_build.log_calls` over `ENTRY_SHAPES`)."""
     from zkvm_prover_tpu_torch import _build
 
-    lib = _build.lib()
-    calls = []
-    originals = {name: getattr(lib, name) for name in ENTRY_SHAPES}
-
-    def logger(name, fn):
-        def logged(*args):
-            calls.append((name, args))
-            return fn(*args)
-        return logged
-
-    for name, fn in originals.items():
-        setattr(lib, name, logger(name, fn))
-    try:
-        yield calls
-    finally:
-        for name, fn in originals.items():
-            setattr(lib, name, fn)
+    return _build.log_calls(ENTRY_SHAPES)
 
 
 def call_key(entry: str, args) -> tuple:
@@ -1269,9 +1272,28 @@ def answered_from_cache(tag: str, prover, task, env) -> float:
     return cached_s
 
 
+# phases 7, 8, 12 and 13 (the chunk -> batch -> bundle chain, its SNARK wrap
+# and the re-executed chunk) prove at default_config() with 25 FRI queries,
+# not 100: phase 8's batch verifies chunk 0's proof in-circuit, and that wire
+# program grows with the child's queries (8,605,046 ALU rows in use, 2^24
+# rows, at 100). Every other path keeps 100, and phase 10's discharge node
+# still verifies two 100-query children in-circuit.
+CHAIN_QUERIES = 25
+
+
+def chain_config():
+    """default_config() with CHAIN_QUERIES FRI queries."""
+    import dataclasses
+
+    from zkvm_prover_tpu_torch.stark.config import default_config
+
+    cfg = default_config()
+    return dataclasses.replace(cfg, fri=dataclasses.replace(cfg.fri, num_queries=CHAIN_QUERIES))
+
+
 def chunk_cell(seed: int):
     """Phase 7: the host entry point. Chunk 0 of ChunkTaskGenerator at
-    default_config(): its kernel shapes checked first, then one
+    chain_config(): its kernel shapes checked first, then one
     `Prover.gen_proof_stark` on a fresh cache (execute, prove on the card,
     self-verify) with the launch counts zeroed just before, a tampered PI
     hash, and a second call that the cache answers. Returns (report,
@@ -1283,9 +1305,8 @@ def chunk_cell(seed: int):
 
     from zkvm_prover_tpu_torch.host import StarkProof, UniversalVerifier
     from zkvm_prover_tpu_torch.integration import ChunkTaskGenerator
-    from zkvm_prover_tpu_torch.stark.config import default_config
 
-    cfg = default_config()
+    cfg = chain_config()
     run_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_chunk")
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
@@ -1480,7 +1501,7 @@ def batch_in_circuit(prover, task, seed: int) -> tuple:
 
 def chain_cell(chunks, seed: int) -> dict:
     """Phase 8: the batch and bundle layers over phase 7's chunk 0 proof.
-    The batch through `Prover(ProverConfig("batch", stark=default_config()))`
+    The batch through `Prover(ProverConfig("batch", stark=chain_config()))`
     with its default in-circuit child verification, over BatchTaskGenerator's
     task 0 (1 chunk a batch): the wire verifier of chunk 0 built, proven
     beside the batch on the card and rebuilt by the self-verify; its
@@ -2766,7 +2787,7 @@ def reexec_cell(chunks, seed: int) -> dict:
     `seed`, with the port's modules; its witnesses in a JSON chunk task at
     phase 7's version through phase 7's Prover with the launch counts zeroed
     just before and read just after: re-execution (timed apart from the
-    guest) inside execute, the proof on the card at default_config(), the
+    guest) inside execute, the proof on the card at chain_config(), the
     self-verify; every C call at a checked shape, every counter nonzero.
     The ChunkInfo against the headers, the precompiles' outputs against the
     host, `UniversalVerifier` True; a header's gas_used + 1, a claimed post
@@ -2855,6 +2876,337 @@ def reexec_cell(chunks, seed: int) -> dict:
             "reexecution_s": reexec_s, "guest_s": guest_s, **measured,
             "verify_s": verify_s, "checks": checks, "precompiles": precompiles,
             "tampers": report_tampers}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: parallel/ (the sharded core and its parts on a mesh of logical
+# shards of the one card; sibling leaf nodes in a spawn pool)
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4     # logical shards: cuda:0 four times
+POOL_WORKERS = 2    # spawned leaf provers, both on cuda:0
+# the aggregation tree's node config: fast_test_config(), not default_config()
+# (its internal node re-verifies two leaf proofs in-circuit; at 100 queries
+# that wire program alone outgrows the phase's time)
+POOL_CHILD_LOG_N = 3
+
+
+def check_calls(calls, seed: int) -> list:
+    """Every distinct C call of `calls` at a shape no check of this run
+    covered, run on fresh inputs from the card's generator through the
+    wrapper the path calls and held against its plain version: K1
+    `ntt_pass` at the call's row pitches and row tables (forward and
+    inverse), K2 `hash_rows`, `compress_levels` (one launch of that many
+    levels) and `permute`, K3 rows and transposed. The check's calls join
+    CHECKED; returns its rows, each with its seconds."""
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import babybear as bb
+    from zkvm_prover_tpu_torch.ops import mont_matmul as mm
+    from zkvm_prover_tpu_torch.ops import ntt_fused
+    from zkvm_prover_tpu_torch.ops import poseidon2 as p2
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    todo = {}
+    for e, a in calls:
+        if call_key(e, a) not in CHECKED["calls"]:
+            todo.setdefault(call_key(e, a), a)
+    rows = []
+    with log_calls() as checked:
+        for (entry, shape), a in sorted(todo.items()):
+            t0 = time.perf_counter()
+            if entry == "ntt_pass":
+                ld_x, ld_y, n, w, lo, L, dit = a[1], a[3], a[4], a[5], a[6], a[7], bool(a[8])
+                x = random_field(gen, (n, ld_x), dev)[:, :w]
+                pre = random_field(gen, (n,), dev) if a[10] is not None else None
+                post = random_field(gen, (n,), dev) if a[11] is not None else None
+                step, err = max(1, PLAIN_ELEMS // n), 0
+                for inverse in (False, True):
+                    out = torch.empty((n, ld_y), dtype=bb.DTYPE, device=dev)[:, :w]
+                    ntt_fused.ntt_pass(x, lo, L, inverse, dit, pre=pre, post=post, out=out)
+                    err = max([err] + [max_err(out[:, c0:c0 + step], ntt_fused.ntt_pass_plain(
+                        x[:, c0:c0 + step], lo, L, inverse, dit, pre, post))
+                        for c0 in range(0, w, step)])
+            elif entry == "p2_hash_rows":
+                r_, c_ = a[1], a[2]
+                mat = random_field(gen, (r_, c_), dev)
+                out = p2.hash_rows(mat)
+                step = max(1, PLAIN_ELEMS // max(c_, 16))
+                err = max(max_err(out[r0:r0 + step], p2.hash_rows_plain(mat[r0:r0 + step]))
+                          for r0 in range(0, r_, step))
+            elif entry == "p2_compress":
+                digests = random_field(gen, (a[1], 8), dev)
+                err = max(max_err(u, v) for u, v in zip(
+                    p2.compress_levels(digests, a[2]), p2.compress_levels_plain(digests, a[2])))
+            elif entry == "p2_permute":
+                states = random_field(gen, (a[2], 16), dev)
+                err = max_err(p2.permute(states), p2.permute_plain(states))
+            else:
+                transpose = entry == "mont_matmul_cols"
+                r_, c_, k = a[2], a[3], a[4]
+                lhs = random_field(gen, (r_, c_), dev)
+                rhs = random_field(gen, (r_ if transpose else c_, 4 * k), dev)
+                err = max_err(mm.mont_matmul(lhs, rhs, transpose),
+                              mm.mont_matmul_plain(lhs, rhs, transpose))
+            rows.append({"entry": entry, "shape": shape, "max_abs_err": err,
+                         "s": time.perf_counter() - t0})
+            if err != 0:
+                raise AssertionError(f"{entry} {shape} disagrees with its plain version")
+    CHECKED["calls"].update(call_key(e, a) for e, a in checked)
+    missed = sorted(set(todo) - CHECKED["calls"])
+    if missed:
+        raise AssertionError(f"the checks did not reproduce the C calls {missed}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sharded_core_cell(trace, log_n: int, seed: int, mesh) -> dict:
+    """Phase 14 (a): `make_prover_core` on the card and
+    `make_prover_core_sharded` over the mesh, at default_config() on phase
+    3's Poseidon2Air trace and three challenges from --seed. Each core runs
+    once (cold) to collect its C calls; the shapes new to the run are
+    checked against their plain versions; then it runs again with the
+    launch counts zeroed just before and read just after (wall-clock, peak
+    memory, launches per kernel; every C call at a checked shape, every
+    counter but the grind's nonzero). The four outputs must be equal bit
+    for bit."""
+    import numpy as np
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import babybear as bb
+    from zkvm_prover_tpu_torch.models.poseidon2_air import Poseidon2Air
+    from zkvm_prover_tpu_torch.parallel.mesh import Sharded
+    from zkvm_prover_tpu_torch.parallel.pipeline_sharded import make_prover_core_sharded
+    from zkvm_prover_tpu_torch.stark.config import default_config
+    from zkvm_prover_tpu_torch.stark.pipeline import make_prover_core
+
+    cfg, air = default_config(), Poseidon2Air()
+    rng = np.random.default_rng(seed)
+    challenges = [bb.to_monty_np(rng.integers(0, bb.P, size=4, dtype=np.uint64))
+                  for _ in range(3)]
+    trace_m = bb.to_monty(bb.as_tensor(trace, "cuda"))
+    cores = {"core": make_prover_core(air, log_n, cfg),
+             "sharded_core": make_prover_core_sharded(air, log_n, cfg, mesh)}
+    report, outs = {}, {}
+    for name, core in cores.items():
+        torch.cuda.synchronize()
+        with log_calls() as first:
+            t0 = time.perf_counter()
+            core(trace_m, [], *challenges)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checks = check_calls(first, seed)
+        check_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with log_calls() as used:
+            t0 = time.perf_counter()
+            out = core(trace_m, [], *challenges)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        unchecked_calls(used, name)
+        missing = [k for k, v in counts.items() if v == 0 and k != "poseidon2_permute"]
+        if missing:
+            raise AssertionError(f"kernels not launched by the {name}: {missing}")
+        outs[name] = [bb.to_numpy(o.gather() if isinstance(o, Sharded) else o) for o in out]
+        del out
+        print(f"[14] {name}: {wall_s:.3f} s (cold {cold_s:.3f} s), peak {peak} bytes; "
+              f"{len(checks)} new C call shapes exact against their plain versions in "
+              f"{check_s:.1f} s; launches {counts}", flush=True)
+        report[name] = {"wall_s": wall_s, "cold_s": cold_s, "peak_bytes": peak,
+                        "launches": counts, "shape_checks": checks, "shape_check_s": check_s,
+                        "distinct_calls": len(set(call_key(e, a) for e, a in used))}
+        torch.cuda.empty_cache()
+    names = ("trace_root", "quotient_root", "codeword", "folded")
+    for what, a, b in zip(names, outs["core"], outs["sharded_core"]):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"the sharded core's {what} differs from make_prover_core's")
+    print(f"[14] sharded core over {mesh.shape['shard']} shards of cuda:0 equals "
+          f"make_prover_core bit for bit in {', '.join(names)} "
+          f"({', '.join(str(tuple(o.shape)) for o in outs['core'])})", flush=True)
+    return report
+
+
+def sharded_parts_cell(seed: int, mesh) -> list:
+    """Phase 14 (b): each sharded part on the mesh against its
+    single-device function, on the card's random inputs: the four-step NTT
+    at (2^20, 8) and (2^22, 2), `commit_root_sharded` at (2^19, 495),
+    `fold_round_sharded` at 2^20 rows; C call shapes new to the run checked
+    against their plain versions first; each side timed (CUDA events)."""
+    import torch
+
+    from zkvm_prover_tpu_torch.fields import babybear as bb
+    from zkvm_prover_tpu_torch.ops import ntt
+    from zkvm_prover_tpu_torch.parallel.fri_sharded import fold_round_sharded
+    from zkvm_prover_tpu_torch.parallel.merkle_sharded import commit_root_sharded
+    from zkvm_prover_tpu_torch.parallel.ntt_sharded import ntt_natural_to_rev_sharded
+    from zkvm_prover_tpu_torch.stark import fri, merkle
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+
+    def part(name, shape, sharded, single):
+        t0 = time.perf_counter()
+        with log_calls() as calls:
+            got, want = sharded(), single()
+        checks = check_calls(calls, seed)
+        equal = bool(got.shape == want.shape and torch.equal(got, want))
+        row = {"name": name, "shape": shape, "equal": equal,
+               "sharded_ms": time_ms(sharded), "single_ms": time_ms(single),
+               "new_shapes_checked": len(checks), "s": time.perf_counter() - t0}
+        rows.append(row)
+        print(f"[14] {name} {shape}: sharded == single-device: {equal}; sharded "
+              f"{row['sharded_ms']:.3f} ms, single {row['single_ms']:.3f} ms (events); "
+              f"{len(checks)} new C call shapes checked", flush=True)
+        if not equal:
+            raise AssertionError(f"sharded {name} {shape} differs from its single-device function")
+
+    for log_n, w in ((20, 8), (22, 2)):
+        x = random_field(gen, (1 << log_n, w), dev)
+        part("ntt_natural_to_rev", f"(2^{log_n},{w})",
+             lambda: ntt_natural_to_rev_sharded(x, mesh).gather(),
+             lambda: ntt.ntt_natural_to_rev(x))
+        del x
+    mat = random_field(gen, (1 << 19, 495), dev)
+    part("commit_root", "(2^19,495)", lambda: commit_root_sharded(mat, mesh),
+         lambda: merkle.commit([mat]).root)
+    del mat
+    cw, beta = random_field(gen, (1 << 20, 4), dev), random_field(gen, (4,), dev)
+    part("fold_round", "(2^20,4)",
+         lambda: fold_round_sharded(cw, 20, bb.GENERATOR, beta, mesh).gather(),
+         lambda: fri.fold_round(cw, 20, bb.GENERATOR, beta))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pool_cell(seed: int) -> dict:
+    """Phase 14 (c): two fibonacci children (log_n 3) from
+    `Prover.gen_proof_stark` on the card; the child slot and one leaf
+    program built here (their C calls' new shapes checked); one leaf node
+    over the two children proved serially here with the launch counts
+    zeroed just before; then
+    `RecursiveAggregationProver(..., AggregationTreeConfig(num_children_leaf=2))
+    .aggregate([p1, p2, p1, p2], workers=2)` with its device None: the two
+    leaf nodes proved by two spawned workers on cuda:0, the root (an
+    internal node over both) here. Each worker zeroes its own counters at
+    the start of its task and reports its launches (building its slot and
+    program, then proving) and its C calls: every call must be at a checked
+    shape, and each worker's proving launches must equal the serial leaf's,
+    every counter nonzero. The pool path's launches are the workers' own,
+    summed. Each pooled leaf must be byte-equal to the serial one, the root
+    must verify and its digest must be the node digest over the two leaves.
+    Shapes new to the run are checked before each proof in this process
+    (`in_circuit_probes`)."""
+    import torch
+
+    from zkvm_prover_tpu_torch.host import Prover, ProverConfig, ProvingTask, serialization
+    from zkvm_prover_tpu_torch.host.app import get_app
+    from zkvm_prover_tpu_torch.models.fibonacci import FibonacciAir
+    from zkvm_prover_tpu_torch.recursion import aggregation as agg
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+
+    cfg = fast_test_config()
+    children_prover = Prover(ProverConfig("fibonacci", stark=cfg))
+    with log_calls() as used, in_circuit_probes(used, seed):
+        envs = [children_prover.gen_proof_stark(ProvingTask(
+            identifier=f"pool-child-{i}", serialized_witness=[json.dumps(
+                {"log_n": POOL_CHILD_LOG_N, "x0": 0, "x1": i + 1}).encode()]))
+            for i in range(2)]
+    unchecked_calls(used, "pool child")
+    kids = [serialization.decode_machine_proof(e.proof) for e in envs]
+    with log_calls() as setup_used:
+        slot = agg.ChildSlot([FibonacciAir()], [POOL_CHILD_LOG_N], cfg)
+        prog = agg.AggNodeProgram(agg.TAG_LEAF, [slot, slot], cfg)
+    check_calls(setup_used, seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    with log_calls() as used, in_circuit_probes(used, seed) as probes:
+        t0 = time.perf_counter()
+        leaf_proof, _ = prog.prove(kids)
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0 - probes["shape_check_s"]
+    leaf_counts = launch_counts()
+    unchecked_calls(used, "serial leaf")
+    missing = [k for k, v in leaf_counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the serial leaf: {missing}")
+    leaf_bytes = serialization.encode_machine_proof(leaf_proof)
+
+    tree = agg.RecursiveAggregationProver(
+        slot, cfg, agg.AggregationTreeConfig(num_children_leaf=POOL_WORKERS))
+    with log_calls() as used, in_circuit_probes(used, seed) as probes, \
+            timed_calls(agg, "_prove_leaf_nodes_pool") as pooled:
+        t0 = time.perf_counter()
+        levels = tree.aggregate([kids[0], kids[1], kids[0], kids[1]], workers=POOL_WORKERS,
+                                app_vk=get_app("fibonacci").vk_bytes())
+        torch.cuda.synchronize()
+        tree_s = time.perf_counter() - t0 - probes["shape_check_s"]
+    unchecked_calls(used, "aggregation root")
+    leaves, root = levels[0], levels[-1][0]
+    equal = [serialization.encode_machine_proof(l.proof) == leaf_bytes for l in leaves]
+    t0 = time.perf_counter()
+    root_ok = root.program.verify(root.proof, expected_digest=root.pi_hash)
+    verify_s = time.perf_counter() - t0
+    want = agg.digest_bytes(agg.node_digest_words(agg.TAG_INTERNAL, [
+        (s.vk_words, [v for (_, _, p) in l.proof.meta for v in p])
+        for s, l in zip(root.program.slots, leaves)]))
+    pool_counts = {k: 0 for k in leaf_counts}
+    for i, l in enumerate(leaves):
+        stray = {e for e, _ in l.stat["calls"]} - set(ENTRY_SHAPES) - {"p2_set_constants"}
+        if stray:
+            raise AssertionError(f"pool worker {i} called entries off the STARK path: {stray}")
+        unchecked_calls([c for c in l.stat["calls"] if c[0] in ENTRY_SHAPES],
+                        f"pool worker {i}")
+        if l.stat["launches"] != leaf_counts:
+            raise AssertionError(f"pool worker {i} launched {l.stat['launches']} proving its "
+                                 f"leaf, the serial leaf {leaf_counts}")
+        for k in pool_counts:
+            pool_counts[k] += l.stat["setup_launches"][k] + l.stat["launches"][k]
+    pool_s = pooled[0]["s"]
+    print(f"[14] pool ({card_line()}): leaf level {pool_s:.3f} s in {POOL_WORKERS} spawned "
+          f"workers on cuda:0 (spawn, CUDA start and library load included) against "
+          f"{serial_s:.3f} s for one leaf proved here; whole tree {tree_s:.3f} s with the "
+          f"root here; leaves byte-equal to the serial leaf: {equal}; root verifies: "
+          f"{root_ok} in {verify_s:.3f} s; root digest = digest over the two leaves: "
+          f"{root.pi_hash == want}; serial leaf launches {leaf_counts}; each worker's "
+          f"proving launches equal them, its {len(leaves[0].stat['calls'])} C calls at checked "
+          f"shapes; the pool's launches (both workers, slot and program builds included) "
+          f"{pool_counts}", flush=True)
+    if len(leaves) != POOL_WORKERS or not all(equal) or not root_ok or root.pi_hash != want \
+            or len(levels) != 2:
+        raise AssertionError("the pooled aggregation tree phase failed")
+    torch.cuda.empty_cache()
+    return {"node_config": "fast_test_config", "child_log_n": POOL_CHILD_LOG_N,
+            "workers": POOL_WORKERS, "pool_leaf_level_s": pool_s, "serial_leaf_s": serial_s,
+            "tree_s": tree_s, "root_verify_s": verify_s, "leaf_proof_bytes": len(leaf_bytes),
+            "launches": leaf_counts, "pool_launches": pool_counts,
+            "worker_setup_launches": [l.stat["setup_launches"] for l in leaves],
+            "root_airs": probes.get("airs")}
+
+
+def parallel_cell(trace, log_n: int, seed: int) -> dict:
+    """Phase 14: the sharded core, the sharded parts and the leaf pool."""
+    import torch
+
+    from zkvm_prover_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MESH_SHARDS, devices=[torch.device("cuda", 0)] * MESH_SHARDS)
+    t0 = time.perf_counter()
+    cores = sharded_core_cell(trace, log_n, seed, mesh)
+    t1 = time.perf_counter()
+    parts = sharded_parts_cell(seed + 1, mesh)
+    t2 = time.perf_counter()
+    pool = pool_cell(seed + 2)
+    t3 = time.perf_counter()
+    print(f"[14] cores {t1 - t0:.1f} s, parts {t2 - t1:.1f} s, pool {t3 - t2:.1f} s", flush=True)
+    return {"card": card_line(), "mesh": f"{MESH_SHARDS} x cuda:0", **cores, "parts": parts,
+            "pool": pool, "split_s": {"cores": t1 - t0, "parts": t2 - t1, "pool": t3 - t2}}
 
 
 def main() -> int:
@@ -3016,7 +3368,6 @@ def main() -> int:
     # 4. the machine cell, on the same Poseidon2 inputs
     report["machine"] = machine_cell(trace, args.log_n, args.seed,
                                      os.path.dirname(args.out) or ".")
-    del trace
     torch.cuda.empty_cache()
     phase_done(4)
 
@@ -3069,11 +3420,18 @@ def main() -> int:
     report["reexec"] = reexec_cell(chunks, args.seed + 10)
     phase_done(13)
 
-    # 14. the kernels line: per kernel, its largest main-path shape; launches
-    # summed over the ten STARK paths (single-AIR proof, machine cell, rv32,
-    # chunk, batch, bundle, ext guest, deferred aggregation, continuations,
-    # the re-executed chunk), then K4's three entries, which only the SNARK
-    # path launches
+    # 14. parallel/: the sharded core on phase 3's trace, the sharded parts,
+    # the leaf pool
+    report["parallel"] = parallel_cell(trace, args.log_n, args.seed + 11)
+    del trace
+    phase_done(14)
+
+    # 15. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the fourteen STARK paths (single-AIR proof, machine cell,
+    # rv32, chunk, batch, bundle, ext guest, deferred aggregation,
+    # continuations, the re-executed chunk, the prover core, the sharded
+    # core, the serial leaf, the pooled leaf level counted by its workers),
+    # then K4's three entries, which only the SNARK path launches
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -3093,6 +3451,10 @@ def main() -> int:
                    "deferred": report["deferred"]["launches"][row["counter"]],
                    "continuations": report["continuations"]["launches"][row["counter"]],
                    "reexec": report["reexec"]["launches"][row["counter"]],
+                   "core": report["parallel"]["core"]["launches"][row["counter"]],
+                   "sharded_core": report["parallel"]["sharded_core"]["launches"][row["counter"]],
+                   "leaf": report["parallel"]["pool"]["launches"][row["counter"]],
+                   "pool": report["parallel"]["pool"]["pool_launches"][row["counter"]],
                    "snark": 0}
         entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
@@ -3113,7 +3475,7 @@ def main() -> int:
                      "shape": f"n={path['n']} c={path['c']} W={path['windows']} m={path['m']}",
                      "fq_products": path["fq_products"][name]})
     report["total_s"] = time.perf_counter() - t_all
-    print(f"[14] seconds by phase: "
+    print(f"[15] seconds by phase: "
           + ", ".join(f"{n}: {t:.1f}" for n, t in report["phase_s"].items())
           + f"; total {report['total_s']:.1f} s", flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

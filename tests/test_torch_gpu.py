@@ -950,3 +950,82 @@ def test_evm_proof_cuda_equals_cpu(cuda):
     for d in ("cuda", "cpu"):
         assert UniversalVerifier("fibonacci", fast_test_config(), device=d) \
             .verify_evm_proof(eps[d])
+
+
+# ---------------------------------------------------------------------------
+# parallel/ (the sharded NTT on logical shards of the card, the leaf pool),
+# the rv32 chipset v0, chunk_benchmark
+# ---------------------------------------------------------------------------
+
+
+def test_sharded_ntt_four_shards_of_the_card(cuda):
+    """The four-step NTT at (2^22, 2) over four logical shards of the card
+    equals the single-device transform."""
+    from zkvm_prover_tpu_torch.parallel.mesh import make_mesh
+    from zkvm_prover_tpu_torch.parallel.ntt_sharded import ntt_natural_to_rev_sharded
+
+    x = _rand(22, (1 << 22, 2), cuda)
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    _same(ntt_natural_to_rev_sharded(x, mesh).gather(), ntt.ntt_natural_to_rev(x))
+
+
+def test_leaf_pool_on_the_card_equals_serial(cuda):
+    """Two sibling leaf nodes (2 queries) proved by two spawned workers on
+    the card: each byte-equal to the same node proved serially here."""
+    from zkvm_prover_tpu_torch.host import serialization
+    from zkvm_prover_tpu_torch.host.app import get_app
+    from zkvm_prover_tpu_torch.models.fibonacci import FibonacciAir
+    from zkvm_prover_tpu_torch.recursion import aggregation as agg
+    from zkvm_prover_tpu_torch.stark import machine
+
+    air = FibonacciAir()
+    kids = [machine.prove_machine([machine.AirInstance(air, *air.generate_trace(3, 0, x1))],
+                                  _tiny(), device=cuda) for x1 in (1, 2)]
+    slot = agg.ChildSlot([FibonacciAir()], [3], _tiny())
+    serial, _ = agg.AggNodeProgram(agg.TAG_LEAF, [slot, slot], _tiny()).prove(kids)
+    pooled = agg._prove_leaf_nodes_pool([kids, kids], get_app("fibonacci").vk_bytes(),
+                                        slot, _tiny(), 2)
+    for p, stat in pooled:
+        assert serialization.encode_machine_proof(p) == \
+            serialization.encode_machine_proof(serial)
+        # each worker reports its own launches and C calls
+        assert stat["device"] == "cuda" and stat["calls"]
+        assert all(stat["launches"][k] for k in ("ntt_pass", "poseidon2_hash_rows",
+                                                  "poseidon2_compress", "mont_matmul_rows"))
+
+
+def test_rv32_v0_proof_cuda_equals_cpu(cuda):
+    """The v0 chipset's straight-line program proved at fast_test_config()
+    on the card and on the host: equal but for `stat`; the card's verifies."""
+    from zkvm_prover_tpu_torch.models import rv32_v0
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+    from zkvm_prover_tpu_torch.vm import asm
+
+    words = asm.assemble([asm.addi("t0", "zero", 5), asm.addi("t1", "zero", 7),
+                          asm.add("t2", "t0", "t1"), asm.sub("t3", "t2", "t0"), asm.halt(0)])
+    _, _, air_traces = rv32_v0.execute_and_trace(words)
+    insts = [machine.AirInstance(a, t, []) for a, t in air_traces]
+    a = machine.prove_machine(insts, fast_test_config(), device=cuda)
+    b = machine.prove_machine(insts, fast_test_config(), device="cpu")
+    _proofs_equal(a, b)
+    assert machine.verify_machine([x for x, _ in air_traces], a, fast_test_config(), device=cuda)
+
+
+def test_chunk_benchmark_on_the_card(cuda, tmp_path, monkeypatch, capsys):
+    """`python -m zkvm_prover_tpu_torch.bin.chunk_benchmark` at
+    default_config() on the card: its JSON stats (printed with -s) and
+    metrics.json."""
+    import json
+
+    from zkvm_prover_tpu_torch.bin import chunk_benchmark
+
+    monkeypatch.setenv("OUTPUT_DIR", str(tmp_path / "run"))
+    metrics = tmp_path / "metrics.json"
+    chunk_benchmark.main(["--metrics", str(metrics)])
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    with capsys.disabled():
+        print(f"\nchunk_benchmark: {out}")
+    stats = json.loads(out)
+    assert stats["device"].startswith("cuda") and stats["cycles_per_gas"] <= 35
+    assert set(json.loads(metrics.read_text())) == {"chunk/execute", "chunk/prove"}

@@ -491,6 +491,13 @@ import zkvm_prover_tpu_torch.snark.evm, zkvm_prover_tpu_torch.ops.msm
 import zkvm_prover_tpu_torch.fields.bn254_native
 import zkvm_prover_tpu_torch.execution, zkvm_prover_tpu_torch.types.chunk.crypto
 import zkvm_prover_tpu_torch.types.chunk.crypto.validium
+import zkvm_prover_tpu_torch.parallel.mesh, zkvm_prover_tpu_torch.parallel.pool
+import zkvm_prover_tpu_torch.parallel.ntt_sharded, zkvm_prover_tpu_torch.parallel.merkle_sharded
+import zkvm_prover_tpu_torch.parallel.fri_sharded, zkvm_prover_tpu_torch.parallel.pipeline_sharded
+import zkvm_prover_tpu_torch.bin.chunk_benchmark, zkvm_prover_tpu_torch.bin.chunk_scanner
+import zkvm_prover_tpu_torch.bin.build_guest, zkvm_prover_tpu_torch.utils.tracing
+import zkvm_prover_tpu_torch.stark.pipeline, zkvm_prover_tpu_torch.host.aggregation
+import zkvm_prover_tpu_torch.models.rv32_v0
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "cryptography", "zkvm_prover_tpu")]
 print("clean")
 """

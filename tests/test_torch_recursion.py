@@ -21,6 +21,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from zkvm_prover_tpu.host import Prover as RefProver
 from zkvm_prover_tpu.host import ProverConfig as RefProverConfig
@@ -78,6 +79,12 @@ def host_permutation(request, monkeypatch):
     if request.param == "numpy":
         monkeypatch.setattr(p2, "permute_np", p2.permute_np_plain)
     return request.param
+
+
+def no_card():
+    """Skip a check of the behaviour of a host with no card where there is one."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host with no card")
 
 
 def _to_port(proof):
@@ -501,11 +508,92 @@ def test_leaf_rejects_tampered_child(leaf):
     assert not leaf["prog"].verify(node_proof)
 
 
-def test_parallel_leaf_proving_raises(leaf):
+def test_leaf_nodes_proved_in_a_pool_equal_the_leaf(leaf):
+    """Two sibling leaf nodes proved by two spawned CPU workers: each is
+    byte-equal to the leaf fixture's proof (itself equal to the
+    reference's)."""
+    from zkvm_prover_tpu_torch.host.app import get_app
+
+    kids = leaf["kids"]
+    proved = agg._prove_leaf_nodes_pool([kids, kids], get_app("fibonacci").vk_bytes(),
+                                        leaf["slot"], TINY, 2, "cpu")
+    assert len(proved) == 2
+    for p, stat in proved:
+        _same_proof(p, leaf["ref_proof"])
+        assert ser.encode_machine_proof(p) == ser.encode_machine_proof(leaf["proof"])
+        # on the host the wrappers run their plain versions: nothing launched
+        assert stat["device"] == "cpu" and stat["calls"] == []
+        assert set(stat["launches"]) == set(stat["setup_launches"]) != set()
+        assert not any(stat["launches"].values())
+
+
+def test_pooled_leaf_at_another_node_config_equals_the_serial_leaf(leaf):
+    """The node config differs from the children's: the worker builds the
+    child slot at the children's config, so its leaf equals the one the
+    serial path's program proves."""
+    from zkvm_prover_tpu_torch.host.app import get_app
+
+    node_cfg = StarkConfig(fri=FriConfig(log_blowup=1, num_queries=3, proof_of_work_bits=1))
+    prover = agg.RecursiveAggregationProver(
+        leaf["slot"], node_cfg, agg.AggregationTreeConfig(num_children_leaf=2), device="cpu")
+    serial, _ = prover._program(agg.TAG_LEAF, (leaf["slot"], leaf["slot"])).prove(leaf["kids"])
+    [(pooled, _)] = agg._prove_leaf_nodes_pool(
+        [leaf["kids"]], get_app("fibonacci").vk_bytes(), leaf["slot"], node_cfg, 1, "cpu")
+    assert ser.encode_machine_proof(pooled) == ser.encode_machine_proof(serial)
+    assert ser.encode_machine_proof(pooled) != ser.encode_machine_proof(leaf["proof"])
+
+
+def test_leaf_worker_refuses_a_slot_with_another_vk(leaf):
+    from zkvm_prover_tpu_torch.host.app import get_app
+    from zkvm_prover_tpu_torch.parallel.pool import stark_config_dict
+
+    vk = bytearray(leaf["slot"].vk_words.tobytes())
+    vk[0] ^= 1
+    payload = {"app_vk": get_app("fibonacci").vk_bytes().hex(),
+               "child_config": stark_config_dict(TINY), "child_vk": bytes(vk).hex(),
+               "node_config": stark_config_dict(TINY), "device": "cpu",
+               "proofs": [ser.encode_machine_proof(k) for k in leaf["kids"]]}
+    with pytest.raises(ValueError, match="another vk"):
+        agg._prove_leaf_node_worker(payload)
+
+
+def test_parallel_leaf_proving_needs_the_app_vk(leaf):
     prover = agg.RecursiveAggregationProver(
         leaf["slot"], TINY, agg.AggregationTreeConfig(num_children_leaf=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(ValueError, match="app vk"):
         prover.aggregate(leaf["kids"], workers=2)
+
+
+def test_parallel_leaf_proving_without_a_card_raises(leaf):
+    no_card()
+    from zkvm_prover_tpu_torch.host.app import get_app
+
+    prover = agg.RecursiveAggregationProver(
+        leaf["slot"], TINY, agg.AggregationTreeConfig(num_children_leaf=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prover.aggregate(leaf["kids"], workers=2, app_vk=get_app("fibonacci").vk_bytes())
+
+
+@pytest.mark.slow
+def test_parallel_tree_equals_serial(leaf):
+    """aggregate(workers=2) over four children (two leaf groups) equals the
+    serial aggregate at the leaves and at the root's digest."""
+    from zkvm_prover_tpu_torch.host.app import get_app
+
+    k1, k2 = leaf["kids"]
+    children = [k1, k2, k1, k2]
+    tree = agg.AggregationTreeConfig(num_children_leaf=2, num_children_internal=3)
+    prover = agg.RecursiveAggregationProver(leaf["slot"], TINY, tree, device="cpu")
+    seq = prover.aggregate(children)
+    par = prover.aggregate(children, workers=2, app_vk=get_app("fibonacci").vk_bytes())
+    assert len(seq[0]) == len(par[0]) == 2
+    for a, b in zip(seq[0], par[0]):
+        assert ser.encode_machine_proof(a.proof) == ser.encode_machine_proof(b.proof)
+        assert a.pi_hash == b.pi_hash
+    # the parallel leaves feed the same internal/root chain
+    assert seq[-1][0].pi_hash == par[-1][0].pi_hash
+    assert par[-1][0].level == "root"
+    assert par[-1][0].program.verify(par[-1][0].proof, expected_digest=par[-1][0].pi_hash)
 
 
 @pytest.mark.slow

@@ -12,6 +12,7 @@ Nothing here runs at import time: the first kernel launch calls `lib()`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -122,6 +123,31 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = handle
     return _LIB
+
+
+@contextlib.contextmanager
+def log_calls(names=None):
+    """Log the C calls of the entry points `names` (default: every one) as
+    (entry, args), in the order made, into the list it yields: the loaded
+    library's functions are wrapped while the block runs. The args are the
+    call's ints (pointers, sizes, the stream) and Nones."""
+    handle = lib()
+    calls = []
+    originals = {name: getattr(handle, name) for name in (names or SIGNATURES)}
+
+    def logger(name, fn):
+        def logged(*args):
+            calls.append((name, args))
+            return fn(*args)
+        return logged
+
+    for name, fn in originals.items():
+        setattr(handle, name, logger(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(handle, name, fn)
 
 
 def check(err: int, what: str) -> None:

@@ -28,8 +28,8 @@ Design notes (TPU-first divergences from openvm):
   separation and binding which *program* produced each child proof.
 
 Siblings at every level are independent machine proofs (the proof-tree DP
-axis, SURVEY.md §2.3); proving them in a process pool waits for
-`parallel/` (ROADMAP Queue 1 item 7).
+axis, SURVEY.md §2.3); `aggregate(workers > 1)` proves the leaf level's
+siblings in a spawn process pool (`parallel/pool.py`).
 
 Node proofs and the preprocessed commitments of child slots run on the card
 unless given another device; the wire programs build on the host.
@@ -117,6 +117,11 @@ def machine_vk_words(airs: Sequence[Air], log_ns: Sequence[int],
     crates/prover/src/prover/mod.rs:129-174)."""
     shape = shape_of(airs, log_ns, config)
     return _vk_words(airs, shape, compute_pre_roots(airs, shape, device))
+
+
+def machine_vk_bytes(airs, log_ns, config, device=None) -> bytes:
+    words = machine_vk_words(airs, log_ns, config, device)
+    return b"".join(int(w).to_bytes(4, "little") for w in words)
 
 
 def constraint_digest_felts(air: Air) -> List[int]:
@@ -369,6 +374,94 @@ class AggNodeProof:
     level: str                   # "leaf" | "internal" | "root"
     program: AggNodeProgram
     children_digests: List[bytes] = field(default_factory=list)
+    # a leaf proved in a pool worker: the worker's launches and C calls
+    # (`_prove_leaf_node_worker`); empty for a node proved in this process
+    stat: Dict = field(default_factory=dict)
+
+
+def _kernel_counters():
+    """This process's launch counters of the STARK kernels (K1, K2, K3)."""
+    from ..ops import mont_matmul as mm
+    from ..ops import ntt_fused
+    from ..ops import poseidon2 as p2
+
+    return ntt_fused.launches, p2.launches, mm.launches
+
+
+def _read_counters() -> Dict[str, int]:
+    return {k: v for d in _kernel_counters() for k, v in d.items()}
+
+
+def _prove_leaf_node_worker(payload: dict) -> dict:
+    """Rebuild the child slot and the leaf program from the registered app
+    and prove one node over its (serialized) child proofs, on the device the
+    payload names (None: the card). The slot is built at the children's own
+    config and must have the parent's vk.
+
+    Returns the proof's bytes and what this task launched in this process
+    (the counters are zeroed at its start): `setup_launches` while building
+    the slot and the program, `launches` while proving, and on a card every
+    C call of the task as (entry, args)."""
+    import contextlib
+
+    from .. import _build
+    from .. import host  # noqa: F401 (registers the apps app_for_vk searches)
+    from ..host import serialization
+    from ..host.app import app_for_vk
+    from ..parallel.pool import stark_config_from
+    from ..stark.config import resolve_device
+
+    app = app_for_vk(bytes.fromhex(payload["app_vk"]))
+    if app is None:
+        raise ValueError("unknown app vk in leaf-node worker")
+    device = resolve_device(payload["device"])
+    for d in _kernel_counters():
+        for k in d:
+            d[k] = 0
+    log = _build.log_calls() if device.type == "cuda" else contextlib.nullcontext([])
+    with log as calls:
+        mps = [serialization.decode_machine_proof(b) for b in payload["proofs"]]
+        meta = mps[0].meta
+        slot = ChildSlot(app.airs_for_meta(meta), [ln for (ln, _, _) in meta],
+                         stark_config_from(payload["child_config"]), device)
+        if slot.vk_words.tobytes().hex() != payload["child_vk"]:
+            raise ValueError("the worker's child slot has another vk than the prover's")
+        prog = AggNodeProgram(TAG_LEAF, [slot] * len(mps),
+                              stark_config_from(payload["node_config"]), device)
+        setup = _read_counters()
+        proof, _ = prog.prove(mps)
+    total = _read_counters()
+    return {"proof": serialization.encode_machine_proof(proof),
+            "setup_launches": setup,
+            "launches": {k: total[k] - setup[k] for k in total},
+            "calls": list(calls), "device": str(device)}
+
+
+def _prove_leaf_nodes_pool(groups, app_vk: bytes, app_slot: ChildSlot,
+                           node_config: StarkConfig, workers: int, device=None):
+    """One leaf node per group of child proofs over `app_slot`, proved by
+    `workers` spawned processes on `device` (None: the card; see
+    `parallel/pool.py`). `prove_machine` is deterministic, so each proof
+    equals the serial one. Returns (proof, stat) per group, stat the
+    worker's report of the task (`_prove_leaf_node_worker`)."""
+    from ..host import serialization
+    from ..parallel.pool import pool_device, spawn_pool, stark_config_dict
+
+    spec = pool_device(device)
+    payloads = [
+        {
+            "app_vk": app_vk.hex(),
+            "child_config": stark_config_dict(app_slot.config),
+            "child_vk": app_slot.vk_words.tobytes().hex(),
+            "node_config": stark_config_dict(node_config),
+            "device": None if device is None else str(device),
+            "proofs": [serialization.encode_machine_proof(p) for p in group],
+        }
+        for group in groups
+    ]
+    with spawn_pool(workers, spec) as ex:
+        done = list(ex.map(_prove_leaf_node_worker, payloads))
+    return [(serialization.decode_machine_proof(r.pop("proof")), r) for r in done]
 
 
 class RecursiveAggregationProver:
@@ -405,25 +498,38 @@ class RecursiveAggregationProver:
                   ) -> List[List[AggNodeProof]]:
         """Full tree; returns proofs per level, root last (single node).
 
-        workers > 1 over more than one leaf group is the reference's
-        process pool of leaf provers, which waits for `parallel/`."""
+        workers > 1 proves the LEAF level's sibling nodes in parallel OS
+        processes (the proof-tree parallelism axis, SURVEY.md §2.3:
+        siblings are independent proofs, and internal levels shrink
+        geometrically, so the leaf level is where the width is), each on
+        this prover's device. It needs `app_vk`, a registered app's vk, so
+        the workers can rebuild the child slot; the proofs equal the serial
+        path's (prove_machine is deterministic)."""
         levels: List[List[AggNodeProof]] = []
         k = self.tree.num_children_leaf
         groups = [list(child_proofs[i : i + k])
                   for i in range(0, len(child_proofs), k)]
-        if workers > 1 and len(groups) > 1:
-            raise NotImplementedError(
-                "ROADMAP Queue 1 item 7: proving sibling leaf nodes in a "
-                "process pool needs parallel/")
         current: List[AggNodeProof] = []
-        for group in groups:
-            prog = self._program(
-                TAG_LEAF, tuple([self.app_slot] * len(group))
-            )
-            proof, pi = prog.prove(group)
-            current.append(AggNodeProof(
-                proof=proof, pi_hash=pi, level="leaf", program=prog,
-            ))
+        if workers > 1 and len(groups) > 1:
+            if app_vk is None:
+                raise ValueError("parallel leaf proving needs the registered app vk")
+            proved = _prove_leaf_nodes_pool(groups, app_vk, self.app_slot,
+                                            self.node_config, workers, self.device)
+            for group, (mproof, stat) in zip(groups, proved):
+                prog = self._program(TAG_LEAF, tuple([self.app_slot] * len(group)))
+                current.append(AggNodeProof(
+                    proof=mproof, pi_hash=digest_bytes(prog.expected_digest(group)),
+                    level="leaf", program=prog, stat=stat,
+                ))
+        else:
+            for group in groups:
+                prog = self._program(
+                    TAG_LEAF, tuple([self.app_slot] * len(group))
+                )
+                proof, pi = prog.prove(group)
+                current.append(AggNodeProof(
+                    proof=proof, pi_hash=pi, level="leaf", program=prog,
+                ))
         levels.append(current)
 
         k = self.tree.num_children_internal

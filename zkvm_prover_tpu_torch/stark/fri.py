@@ -60,15 +60,19 @@ def inv_denoms_np(log_m: int, shift_int: int) -> np.ndarray:
 INV2 = bb.to_monty_int(pow(2, bb.P - 2, bb.P))
 
 
-def fold_round(codeword, log_m: int, shift_int: int, beta):
-    """One FRI fold. codeword: (m, 4) ext Montgomery; beta: (4,) ext."""
-    half = (1 << log_m) // 2
-    lo = codeword[:half]
-    hi = codeword[half:]
-    inv_d = bb.as_tensor(inv_denoms_np(log_m, shift_int % bb.P), codeword.device)
+def fold_halves(lo, hi, inv_d, beta):
+    """The fold of paired rows: (lo + hi)/2 + beta * (lo - hi) * inv_d, with
+    inv_d the rows' 1/(2x)."""
     g = bb.mul(bb.add(lo, hi), INV2)
     h = bb.mul(bb.sub(lo, hi), inv_d[:, None])
     return bb.add(g, ext4.mul(h, beta))
+
+
+def fold_round(codeword, log_m: int, shift_int: int, beta):
+    """One FRI fold. codeword: (m, 4) ext Montgomery; beta: (4,) ext."""
+    half = (1 << log_m) // 2
+    inv_d = bb.as_tensor(inv_denoms_np(log_m, shift_int % bb.P), codeword.device)
+    return fold_halves(codeword[:half], codeword[half:], inv_d, beta)
 
 
 def prove(codeword, log_m: int, shift_int: int, config: FriConfig,

@@ -21,8 +21,8 @@ Montgomery int32 tensors, (n,) base or (n, 4) extension, and builder
 constants are Montgomery python ints. In point mode (the verifier at zeta)
 every value is a canonical extension element, 4 python ints, as the port's
 `PointBuilder` gives it. The prover's work is plain torch on the tensors'
-device: one batched extension inverse per interaction and an exact int64
-running sum.
+device: the powers of beta once a pass, one batched extension inverse for
+a group of interactions and an exact int64 running sum.
 """
 
 from __future__ import annotations
@@ -37,10 +37,20 @@ from ..models.air import Interaction, base_col
 from ..utils import ext_np
 
 
-def fingerprint(inter: Interaction, beta, point_mode: bool = False):
+def beta_powers(beta, n: int) -> List:
+    """[beta, beta^2, ..., beta^n] as (4,) tensors, by the fingerprint's
+    own product order, so that a prover pass computes them once."""
+    out = [beta]
+    while len(out) < n:
+        out.append(ext4.mul(out[-1], beta))
+    return out[:n]
+
+
+def fingerprint(inter: Interaction, beta, point_mode: bool = False, bpows=None):
     """fp = bus + sum_k beta^(k+1) * field_k, broadcast over rows. On
     tensors each base field scales the power of beta: (n, 4), or (4,) when
-    every field is a constant."""
+    every field is a constant; `bpows` may hold those powers
+    (`beta_powers`)."""
     if point_mode:
         acc = ext_np.from_base(inter.bus)
         bpow = beta
@@ -48,11 +58,11 @@ def fingerprint(inter: Interaction, beta, point_mode: bool = False):
             acc = ext_np.add(acc, ext_np.mul(bpow, f))
             bpow = ext_np.mul(bpow, beta)
         return acc
+    if bpows is None:
+        bpows = beta_powers(beta, len(inter.fields))
     acc = ext4.from_ints([inter.bus, 0, 0, 0], beta.device)
-    bpow = beta
-    for f in inter.fields:
+    for f, bpow in zip(inter.fields, bpows):
         acc = ext4.add(acc, bb.mul(base_col(f), bpow))
-        bpow = ext4.mul(bpow, beta)
     return acc
 
 
@@ -74,19 +84,31 @@ def _sub_base(e, s):
     return torch.cat([head, e[..., 1:].expand(head.shape[:-1] + (3,))], dim=-1)
 
 
+# extension elements a batched inverse takes at a time (its int64
+# temporaries stay near those of one interaction at 2^22 rows)
+INV_BATCH_ELEMS = 1 << 22
+
+
 def build_perm_trace(interactions: Sequence[Interaction], z, beta):
     """Prover side: (perm (n, 4k + 4) Montgomery, claimed_sum (4,)).
 
     interactions carry (n,) field/multiplicity tensors from a TraceBuilder
-    pass; z, beta are (4,) tensors on their device. The running sum is an
-    exact int64 cumsum, then one reduction: entries are below p and n is at
-    most 2^27, so no partial sum reaches 2^63."""
+    pass; z, beta are (4,) tensors on their device. The denominators of
+    several interactions invert as one batch (an inverse is elementwise, so
+    the batch does not change a value). The running sum is an exact int64
+    cumsum, then one reduction: entries are below p and n is at most 2^27,
+    so no partial sum reaches 2^63."""
+    bpows = beta_powers(beta, max(len(i.fields) for i in interactions))
+    dens = torch.broadcast_tensors(
+        *[ext4.sub(z, fingerprint(inter, beta, bpows=bpows)) for inter in interactions])
+    step = max(1, INV_BATCH_ELEMS // max(1, dens[0][..., 0].numel()))
     cols = []
-    for inter in interactions:
-        fp = fingerprint(inter, beta)
-        inv_d = ext4.inv(ext4.sub(z, fp))
+    for j0 in range(0, len(dens), step):
+        inv_d = ext4.inv(torch.stack(dens[j0:j0 + step]))
         # the multiplicity is a base value: a scale, not an extension product
-        cols.append(bb.mul(inv_d, base_col(signed_mult(inter))))
+        cols += [bb.mul(d, base_col(signed_mult(inter)))
+                 for d, inter in zip(inv_d, interactions[j0:j0 + step])]
+    del dens
     cols = torch.broadcast_tensors(*cols)
     total = cols[0]
     for c in cols[1:]:
@@ -121,8 +143,10 @@ def perm_constraints(
             return bb.mul(c, s[:, None])
 
     out = []
+    bpows = None if point_mode or not k else beta_powers(
+        beta, max(len(i.fields) for i in interactions))
     for j, inter in enumerate(interactions):
-        fp = fingerprint(inter, beta, point_mode)
+        fp = fingerprint(inter, beta, point_mode, bpows)
         sm = signed_mult(inter, point_mode)
         lhs = mul(perm_local[j], sub(z, fp))
         out.append(sub(lhs, sm) if point_mode else _sub_base(lhs, sm))

@@ -66,6 +66,71 @@ def _observe_opened(challenger: Challenger, *arrays):
         challenger.observe_slice(np.asarray(a, dtype=np.uint32).reshape(-1))
 
 
+# The stages between the Fiat-Shamir interactions, shared by `prove` (with
+# sampled challenges) and `stark.pipeline.make_prover_core` (with given ones).
+
+
+def trace_lde_of(trace: torch.Tensor, log_blowup: int, g: int, canonical: bool = False):
+    """Interpolate the (n, w) trace over H and extend it to the coset g*D:
+    (c_rev, trace_lde), the bit-reversed coefficients and the (n << log_blowup,
+    w) evaluations. A canonical trace becomes Montgomery in the INTT's last
+    pass."""
+    c_rev = ntt.interpolate_coset_rev(trace, 1, canonical=canonical)
+    return c_rev, ntt.eval_coset_from_rev(c_rev, log_blowup, g)
+
+
+def quotient_chunks(air: Air, trace_lde: torch.Tensor, sels: dict, pvs_m, alpha,
+                    log_n: int, log_blowup: int, g: int):
+    """The constraints folded by powers of alpha as they arrive, divided by
+    Z_H, split into per-coset chunks and each re-extended: (chunk_crevs,
+    chunk_lde), chunk_lde (m, 4 * chunks). pvs_m: Montgomery ints; alpha:
+    (4,) ext Montgomery."""
+    dev = trace_lde.device
+    m = int(trace_lde.shape[0])
+    builder = LdeBuilder(trace_lde, 1 << log_blowup, sels, pvs_m,
+                         alpha=bb.as_tensor(alpha, dev))
+    air.eval(builder)
+    c_folded = builder.folded
+    if c_folded is None:
+        c_folded = torch.zeros((m, 4), dtype=bb.DTYPE, device=dev)
+    del builder
+    q = bb.mul(c_folded, sels["inv_zh"][:, None])
+    del c_folded
+
+    n_chunks = 1 << LOG_QUOTIENT_DEGREE
+    w_m_int = bb.two_adic_generator_int(log_n + log_blowup)
+    chunk_crevs = []
+    chunk_lde = torch.empty((m, 4 * n_chunks), dtype=bb.DTYPE, device=dev)
+    for r in range(n_chunks):
+        s_r = (g * pow(w_m_int, r, bb.P)) % bb.P
+        # q[r::n_chunks]: the (n, 4) evals on (g w_m^r) H, read in place
+        cr = ntt.interpolate_coset_rev(q[r::n_chunks], s_r)
+        chunk_crevs.append(cr)
+        ntt.eval_coset_from_rev(cr, log_blowup, g, out=chunk_lde[:, 4 * r:4 * r + 4])
+    return chunk_crevs, chunk_lde
+
+
+def zeta_next_of(zeta: np.ndarray, log_n: int) -> np.ndarray:
+    """zeta * g_H, Montgomery (4,)."""
+    g_h = bb.two_adic_generator_int(log_n)
+    return bb.to_monty_np(np.asarray(ext_np.scale(ext_np.from_monty(zeta), g_h),
+                                     dtype=np.uint64))
+
+
+def ood_openings(c_rev: torch.Tensor, chunk_crevs, zeta: np.ndarray, log_n: int):
+    """The out-of-domain openings: (zeta_next, t_at_z (w, 4), t_at_zn (w, 4),
+    q_at_z (4 * chunks, 4)), numpy Montgomery."""
+    dev = c_rev.device
+    zeta_next = zeta_next_of(zeta, log_n)
+    zeta_t = bb.as_tensor(zeta, dev)
+    # zeta and zeta * g_H from one read of the coefficients
+    t_at_z, t_at_zn = (bb.to_numpy(t) for t in ntt.eval_poly_at_points_ext(
+        c_rev, [zeta_t, bb.as_tensor(zeta_next, dev)]))
+    q_at_z = np.concatenate(
+        [bb.to_numpy(ntt.eval_poly_at_point_ext(cr, zeta_t)) for cr in chunk_crevs], axis=0)
+    return zeta_next, t_at_z, t_at_zn, q_at_z
+
+
 def _deep_combine(trace_lde, chunk_lde, x, zeta, zeta_next,
                   t_at_z, t_at_zn, q_at_z, gamma):
     """The DEEP codeword on the LDE domain:
@@ -155,7 +220,6 @@ def prove(
         raise ValueError("the quotient split assumes blowup 2")
     m = n << log_blowup
     g = config.coset_shift % bb.P
-    w_m_int = bb.two_adic_generator_int(log_n + log_blowup)
     phases = _Phases(dev)
 
     challenger = Challenger()
@@ -166,38 +230,18 @@ def prove(
 
     # 1. trace LDE and commitment
     # the trace is canonical: the INTT's last pass converts it to Montgomery
-    c_rev = ntt.interpolate_coset_rev(bb.as_tensor(trace, dev), 1, canonical=True)
-    trace_lde = ntt.eval_coset_from_rev(c_rev, log_blowup, g)
+    c_rev, trace_lde = trace_lde_of(bb.as_tensor(trace, dev), log_blowup, g, canonical=True)
     phases.mark("lde")
     tree_t = merkle.commit([trace_lde])
     challenger.observe_slice(tree_t.root_np())
     alpha = challenger.sample_ext()
     phases.mark("trace_commit")
 
-    # 2. constraints folded by powers of alpha as they arrive, then / Z_H
+    # 2-3. constraints folded by alpha, / Z_H, split into chunks, re-extended
     sels = domain.selectors_on_coset(log_n, log_blowup, g, dev)
     pvs_m = [bb.to_monty_int(int(v) % bb.P) for v in public_values]
-    builder = LdeBuilder(trace_lde, 1 << log_blowup, sels, pvs_m,
-                         alpha=bb.as_tensor(alpha, dev))
-    air.eval(builder)
-    c_folded = builder.folded
-    if c_folded is None:
-        c_folded = torch.zeros((m, 4), dtype=bb.DTYPE, device=dev)
-    del builder
-    q = bb.mul(c_folded, sels["inv_zh"][:, None])
-    del c_folded
-
-    # 3. split into per-coset chunks, re-extend, commit
-    n_chunks = 1 << LOG_QUOTIENT_DEGREE
-    chunk_crevs = []
-    chunk_lde = torch.empty((m, 4 * n_chunks), dtype=bb.DTYPE, device=dev)
-    for r in range(n_chunks):
-        s_r = (g * pow(w_m_int, r, bb.P)) % bb.P
-        # q[r::n_chunks]: the (n, 4) evals on (g w_m^r) H, read in place
-        cr = ntt.interpolate_coset_rev(q[r::n_chunks], s_r)
-        chunk_crevs.append(cr)
-        ntt.eval_coset_from_rev(cr, log_blowup, g, out=chunk_lde[:, 4 * r:4 * r + 4])
-    del q
+    chunk_crevs, chunk_lde = quotient_chunks(air, trace_lde, sels, pvs_m, alpha,
+                                             log_n, log_blowup, g)
     phases.mark("constraints_quotient")
     tree_q = merkle.commit([chunk_lde])
     challenger.observe_slice(tree_q.root_np())
@@ -205,17 +249,7 @@ def prove(
     phases.mark("quotient_commit")
 
     # 4. out-of-domain openings
-    g_h = bb.two_adic_generator_int(log_n)
-    zeta_next = bb.to_monty_np(np.asarray(
-        ext_np.scale(ext_np.from_monty(zeta), g_h), dtype=np.uint64))
-    zeta_t = bb.as_tensor(zeta, dev)
-    zeta_next_t = bb.as_tensor(zeta_next, dev)
-    # zeta and zeta * g_H from one read of the coefficients
-    t_at_z, t_at_zn = (bb.to_numpy(t) for t in
-                       ntt.eval_poly_at_points_ext(c_rev, [zeta_t, zeta_next_t]))
-    q_at_z = np.concatenate(
-        [bb.to_numpy(ntt.eval_poly_at_point_ext(cr, zeta_t))
-         for cr in chunk_crevs], axis=0)  # (8, 4)
+    zeta_next, t_at_z, t_at_zn, q_at_z = ood_openings(c_rev, chunk_crevs, zeta, log_n)
     del c_rev, chunk_crevs
     _observe_opened(challenger, t_at_z, t_at_zn, q_at_z)
     gamma = challenger.sample_ext()
@@ -256,7 +290,7 @@ def prove(
         quotient_root=tree_q.root_np(),
         opened_trace_zeta=t_at_z,
         opened_trace_zeta_next=t_at_zn,
-        opened_quotient=q_at_z.reshape(n_chunks, 4, 4),
+        opened_quotient=q_at_z.reshape(1 << LOG_QUOTIENT_DEGREE, 4, 4),
         fri_proof=fri_proof,
         query_openings=query_openings,
         stat=stat,
