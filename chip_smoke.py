@@ -182,7 +182,21 @@ at a shape some check of the run covered:
      a checked shape, its proving launches equal to the serial leaf's;
      the root proved here, verified, its digest the node digest over the
      two leaves; the pool's leaf level against the serial leaf's seconds;
- 15. the seconds of each phase, the kernels line (JSON; launches summed
+ 15. (a) the width-24 Poseidon2 permutation (`permute24_kernel`) called
+     once through `ops.poseidon2.permute` on (2^18, 24) states from
+     --seed with the launch counts zeroed just before and read just after
+     (one launch of its own counter, no other), then against its plain
+     version: ms, plain ms, bound, registers and spills (ptxas); (b) the
+     rv32 v1 chipset (branches, loops, word RAM) at its largest run, 4,096
+     cycles (timestamp differences are 16-bit range-checked): a
+     fibonacci loop of 799 iterations (4,000 cycles) and an LW/SW
+     array-sum loop over 400 words above 0x1000 (4,008 cycles), each
+     executed and traced (6 AIRs), its registers checked on the host, its
+     new kernel shapes checked against their plain versions, proved at
+     default_config() with the launch counts zeroed just before and read
+     just after (every C call at a checked shape, every counter nonzero),
+     verified (True) and with a tampered claimed sum (False);
+ 16. the seconds of each phase, the kernels line (JSON; launches summed
      over every path, and per path; the pool path's are its workers'),
      the card line, and last the result line.
 The port imports no JAX; this script imports nothing of the JAX package.
@@ -206,6 +220,15 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT_MULS_PER_S = 16.75e12
 MULS_PER_MODMUL = 3           # 32x32->64 product, m = lo * NP, m * p
 MODMULS_PER_PERM = 772        # Poseidon2-16: 8*16*4 (S-box) + 13*(4 + 16)
+MODMULS_PER_PERM24 = 1356     # Poseidon2-24: 8*24*4 (S-box) + 21*(4 + 24)
+
+
+# the permutation entries' state widths
+PERMUTE_WIDTHS = {"p2_permute": 16, "p2_permute24": 24}
+
+
+def _permute_shape(entry: str):
+    return lambda a: f"({a[2]},{PERMUTE_WIDTHS[entry]})"
 
 
 # C entry point -> (launch counter, shape from the scalar arguments)
@@ -214,7 +237,8 @@ ENTRY_SHAPES = {
                  f"{' dit' if a[8] else ''}{'' if a[1] == a[5] else f' ld_x={a[1]}'}"
                  f"{'' if a[3] == a[5] else f' ld_y={a[3]}'}"
                  f"{'' if a[10] is None else ' pre'}{'' if a[11] is None else ' post'}"),
-    "p2_permute": ("poseidon2_permute", lambda a: f"({a[2]},16)"),
+    "p2_permute": ("poseidon2_permute", _permute_shape("p2_permute")),
+    "p2_permute24": ("poseidon2_permute24", _permute_shape("p2_permute24")),
     "p2_hash_rows": ("poseidon2_hash_rows", lambda a: f"({a[1]},{a[2]})"),
     "p2_compress": ("poseidon2_compress", lambda a: f"{a[1]} digests, {a[2]} levels"),
     "mont_matmul_rows": ("mont_matmul_rows", lambda a: f"({a[2]},{a[3]}) k={a[4]}"),
@@ -456,7 +480,7 @@ MACHINE_K3 = ((False, 0, 1, 2), (False, 0, 12, 2), (False, 0, 8, 2),
 def launch_counts():
     """The STARK kernels' launches by counter (K1's whole transforms are not
     launches: they are read from `ntt_fused.transforms`; K4's are
-    `snark_counts()`)."""
+    `snark_counts()`, the width-24 permutation's `p2.launches_w24`)."""
     from zkvm_prover_tpu_torch.ops import mont_matmul as mm
     from zkvm_prover_tpu_torch.ops import ntt_fused
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
@@ -469,7 +493,8 @@ def _counters():
     from zkvm_prover_tpu_torch.ops import msm, ntt_fused
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
 
-    return ntt_fused.launches, ntt_fused.transforms, p2.launches, mm.launches, msm.launches
+    return (ntt_fused.launches, ntt_fused.transforms, p2.launches, p2.launches_w24,
+            mm.launches, msm.launches)
 
 
 def reset_counts():
@@ -714,10 +739,7 @@ def machine_cell(trace, log_n: int, seed: int, out_dir: str) -> dict:
     t0 = time.perf_counter()
     ok = machine.verify_machine(airs, proof, cfg)
     verify_s = time.perf_counter() - t0
-    bad = copy.deepcopy(proof)
-    cs = next(i for i, c in enumerate(bad.claimed_sums) if c is not None)
-    bad.claimed_sums[cs] = bad.claimed_sums[cs].copy()
-    bad.claimed_sums[cs][0] = (int(bad.claimed_sums[cs][0]) + 1) % 2013265921
+    bad = tampered_claimed_sum(airs, proof)
     tampered = machine.verify_machine(airs, bad, cfg)
     print(f"[4] verify: {ok} in {verify_s:.3f} s; tampered claimed sum: {tampered}",
           flush=True)
@@ -966,12 +988,23 @@ def tampered_public_value(airs, proof):
     return bad
 
 
-def checked_machine_proof(tag: str, air_traces, seed: int) -> dict:
+def tampered_claimed_sum(airs, proof):
+    """A copy of the proof with the first AIR's claimed logUp sum off by 1."""
+    bad = copy.deepcopy(proof)
+    cs = next(i for i, c in enumerate(bad.claimed_sums) if c is not None)
+    bad.claimed_sums[cs] = bad.claimed_sums[cs].copy()
+    bad.claimed_sums[cs][0] = (int(bad.claimed_sums[cs][0]) + 1) % 2013265921
+    return bad
+
+
+def checked_machine_proof(tag: str, air_traces, seed: int,
+                          tamper=("public value", tampered_public_value)) -> dict:
     """Every kernel shape of the machine's proof that no earlier check of
     the run covered checked against its plain version; then the proof at
     default_config() with the launch counts zeroed just before (cold),
     every C call at a checked shape and every counter nonzero; verify
-    (True) and a tampered public value (False)."""
+    (True) and a proof tampered by `tamper` = (what, fn(airs, proof))
+    (False)."""
     import torch
 
     from zkvm_prover_tpu_torch.ops import ntt_fused
@@ -1017,10 +1050,11 @@ def checked_machine_proof(tag: str, air_traces, seed: int) -> dict:
     t0 = time.perf_counter()
     ok = machine.verify_machine(airs, proof, cfg)
     verify_s = time.perf_counter() - t0
+    what, forge = tamper
     t0 = time.perf_counter()
-    tampered = machine.verify_machine(airs, tampered_public_value(airs, proof), cfg)
+    tampered = machine.verify_machine(airs, forge(airs, proof), cfg)
     tampered_s = time.perf_counter() - t0
-    print(f"[{tag}] verify_wall_s {verify_s:.3f}: {ok}; tampered public value: {tampered} "
+    print(f"[{tag}] verify_wall_s {verify_s:.3f}: {ok}; tampered {what}: {tampered} "
           f"in {tampered_s:.3f} s", flush=True)
     if not ok or tampered:
         raise AssertionError(f"[{tag}] verification phase failed")
@@ -1029,7 +1063,7 @@ def checked_machine_proof(tag: str, air_traces, seed: int) -> dict:
     return {"proof_wall_s": prove_s, "verify_wall_s": verify_s, "shape_checks": rows,
             "shape_check_s": check_s, "checked_calls": n_checked, "peak_bytes": peak,
             "phases_ms": phases, "ood_observed_values": n_obs, "launches": counts,
-            "tampered_public_value": tampered, "tampered_verify_s": tampered_s}
+            "tamper": what, "tampered": tampered, "tampered_verify_s": tampered_s}
 
 
 def print_airs(air_traces) -> int:
@@ -2939,8 +2973,8 @@ def check_calls(calls, seed: int) -> list:
                 digests = random_field(gen, (a[1], 8), dev)
                 err = max(max_err(u, v) for u, v in zip(
                     p2.compress_levels(digests, a[2]), p2.compress_levels_plain(digests, a[2])))
-            elif entry == "p2_permute":
-                states = random_field(gen, (a[2], 16), dev)
+            elif entry in PERMUTE_WIDTHS:
+                states = random_field(gen, (a[2], PERMUTE_WIDTHS[entry]), dev)
                 err = max_err(p2.permute(states), p2.permute_plain(states))
             else:
                 transpose = entry == "mont_matmul_cols"
@@ -3209,6 +3243,136 @@ def parallel_cell(trace, log_n: int, seed: int) -> dict:
             "pool": pool, "split_s": {"cores": t1 - t0, "parts": t2 - t1, "pool": t3 - t2}}
 
 
+# phase 15: the width-24 Poseidon2 kernel, and the rv32 v1 chipset at its
+# largest run (5 * 4096 < 2^16: timestamp differences are 16-bit
+# range-checked, so `rv32_v1.execute_and_trace` stops at 4,096 cycles)
+P2_WIDE_BATCH = 1 << 18
+P2_WIDE_SOURCE = "zkvm_prover_tpu_torch/csrc/poseidon2.cu"
+P2_WIDE_REPLACES = "zkvm_prover_tpu/ops/poseidon2.py:182"
+V1_FIB_ITERS = 799            # 3 + 5 * 799 + 2 = 4,000 cycles
+V1_RAM_WORDS = 400            # 4 + 10 * 400 + 4 = 4,008 cycles
+V1_DATA = 0x1000
+
+
+def permute24_cell(seed: int) -> dict:
+    """Phase 15 (a): `ops.poseidon2.permute` on (2^18, 24) states, once
+    with the counts zeroed (one width-24 launch, no other), then against
+    its plain version, timed, and its registers and spills from ptxas."""
+    import torch
+
+    from zkvm_prover_tpu_torch import _build, kernel_report
+    from zkvm_prover_tpu_torch.ops import poseidon2 as p2
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    states = random_field(gen, (P2_WIDE_BATCH, 24), dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    with log_calls() as used:
+        out = p2.permute(states)
+        torch.cuda.synchronize()
+    launched = p2.launches_w24["poseidon2_permute24"]
+    others = {k: v for k, v in launch_counts().items() if v}
+    entries = [e for e, _ in used]
+    if launched != 1 or others or entries != ["p2_permute24"]:
+        raise AssertionError(f"permute on (2^18, 24) launched {launched}, {others}, {entries}")
+    err = max_err(out, p2.permute_plain(states))
+    ms = time_ms(lambda: p2.permute(states))
+    plain_ms = time_ms(lambda: p2.permute_plain(states), reps=1, warmup=False)
+    nbytes = P2_WIDE_BATCH * 24 * 4 * 2
+    b_ms, b_by = bound_ms(nbytes, P2_WIDE_BATCH * MODMULS_PER_PERM24 * MULS_PER_MODMUL)
+    res = kernel_report.ptxas_resources(_build.ptxas_log()).get("permute24_kernel", {})
+    print(f"[15] poseidon2_permute24 ({P2_WIDE_BATCH},24) err={err} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}); launches {launched}; "
+          f"ptxas {res}", flush=True)
+    if err != 0:
+        raise AssertionError("the width-24 permutation disagrees with its plain version")
+    if res.get("spill_stores", 1) or res.get("spill_loads", 1):
+        raise AssertionError(f"permute24_kernel spills or was not reported: {res}")
+    del states, out
+    return {"name": "poseidon2_permute24", "route": "cuda", "source": P2_WIDE_SOURCE,
+            "replaces": P2_WIDE_REPLACES, "shape": f"({P2_WIDE_BATCH},24)", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "bytes": nbytes, "launches": launched, "ptxas": res}
+
+
+def v1_programs() -> dict:
+    """Phase 15 (b)'s programs, with the registers each must end with."""
+    from zkvm_prover_tpu_torch.vm import asm
+
+    fib = asm.assemble([
+        asm.addi("s0", "zero", 0),
+        asm.addi("s1", "zero", 1),
+        asm.addi("t0", "zero", V1_FIB_ITERS),
+        ("label", "loop"),
+        asm.add("t1", "s0", "s1"),
+        asm.add("s0", "s1", "zero"),
+        asm.add("s1", "t1", "zero"),
+        asm.addi("t0", "t0", -1),
+        ("branch", asm.bne, "t0", "zero", "loop"),
+        asm.halt(0),
+    ])
+    a, b = 0, 1
+    for _ in range(V1_FIB_ITERS):
+        a, b = b, (a + b) % (1 << 32)
+    # word i of the array holds 1 + 7 i; the second loop loads and sums them
+    ram = asm.assemble([
+        asm.lui("s2", V1_DATA >> 12),
+        asm.addi("t0", "zero", 1),
+        asm.addi("t1", "zero", 0),
+        asm.addi("t2", "zero", 4 * V1_RAM_WORDS),
+        ("label", "fill"),
+        asm.add("t6", "s2", "t1"),
+        asm.sw("t0", "t6", 0),
+        asm.addi("t0", "t0", 7),
+        asm.addi("t1", "t1", 4),
+        ("branch", asm.bne, "t1", "t2", "fill"),
+        asm.addi("s0", "zero", 0),
+        asm.addi("t1", "zero", 0),
+        ("label", "sum"),
+        asm.add("t6", "s2", "t1"),
+        asm.lw("t3", "t6", 0),
+        asm.add("s0", "s0", "t3"),
+        asm.addi("t1", "t1", 4),
+        ("branch", asm.bne, "t1", "t2", "sum"),
+        asm.halt(0),
+    ])
+    return {"fib_loop": (fib, {"s0": a}),
+            "array_sum": (ram, {"s0": sum(1 + 7 * i for i in range(V1_RAM_WORDS))})}
+
+
+def v1_cell(seed: int) -> dict:
+    """Phase 15 (b): each of `v1_programs()` executed by the native
+    executor and traced by `models/rv32_v1.py`, its registers checked,
+    then `checked_machine_proof` at default_config() with a tampered
+    claimed sum."""
+    from zkvm_prover_tpu_torch.models import rv32_v1
+    from zkvm_prover_tpu_torch.vm import asm, executor
+
+    executor.build_native()
+    out = {}
+    for k, (name, (words, regs)) in enumerate(v1_programs().items()):
+        t0 = time.perf_counter()
+        ex, state, air_traces = rv32_v1.execute_and_trace(words)
+        tracegen_s = time.perf_counter() - t0
+        got = {r: ex.get_reg(asm.REGS[r]) for r in regs}
+        cycles = int(air_traces[0][1][:, rv32_v1.CpuAirV1.IS_REAL].sum())
+        print(f"[15] rv32 v1 {name}: {len(words)} words, {cycles} cycles, executed and traced "
+              f"in {tracegen_s:.2f} s; registers {got} (want {regs})", flush=True)
+        if state != executor.HALTED or got != regs:
+            raise AssertionError(f"the v1 {name} program did not halt with {regs}")
+        triples = [(a, t, []) for a, t in air_traces]
+        cells = print_airs(triples)
+        res = checked_machine_proof(f"15 {name}", triples, seed + k,
+                                    tamper=("claimed sum", tampered_claimed_sum))
+        out[name] = {"words": len(words), "cycles": cycles, "tracegen_s": tracegen_s,
+                     "trace_cells": cells, "registers": got,
+                     "airs": [[type(a).__name__, list(t.shape)] for a, t in air_traces], **res}
+    out["launches"] = {key: sum(out[n]["launches"][key] for n in ("fib_loop", "array_sum"))
+                       for key in out["fib_loop"]["launches"]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=18,
@@ -3426,12 +3590,19 @@ def main() -> int:
     del trace
     phase_done(14)
 
-    # 15. the kernels line: per kernel, its largest main-path shape; launches
-    # summed over the fourteen STARK paths (single-AIR proof, machine cell,
+    # 15. the width-24 permutation, and the rv32 v1 chipset at full size
+    report["permute24"] = permute24_cell(args.seed + 12)
+    report["rv32_v1"] = v1_cell(args.seed + 13)
+    phase_done(15)
+
+    # 16. the kernels line: per kernel, its largest main-path shape; launches
+    # summed over the fifteen STARK paths (single-AIR proof, machine cell,
     # rv32, chunk, batch, bundle, ext guest, deferred aggregation,
     # continuations, the re-executed chunk, the prover core, the sharded
-    # core, the serial leaf, the pooled leaf level counted by its workers),
-    # then K4's three entries, which only the SNARK path launches
+    # core, the serial leaf, the pooled leaf level counted by its workers,
+    # the two v1 programs), then the width-24 permutation, which only its
+    # own call of phase 15 launches, and K4's three entries, which only the
+    # SNARK path launches
     kernels = {}
     for row in rows:
         best = kernels.get(row["name"])
@@ -3455,13 +3626,19 @@ def main() -> int:
                    "sharded_core": report["parallel"]["sharded_core"]["launches"][row["counter"]],
                    "leaf": report["parallel"]["pool"]["launches"][row["counter"]],
                    "pool": report["parallel"]["pool"]["pool_launches"][row["counter"]],
-                   "snark": 0}
+                   "rv32_v1": report["rv32_v1"]["launches"][row["counter"]],
+                   "permute24": 0, "snark": 0}
         entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                      bound_by=row["bound_by"], library_ms=None,
                      shape=row["shape"], bytes=row["bytes"])
         line.append(entry)
+    wide = report["permute24"]
+    line.append({**{key: wide[key] for key in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "shape", "bytes")},
+        "launches_by_path": {"permute24": wide["launches"]}})
     path = report["snark"]["msm_path"][0]
     checks = [report["snark"]["msm_edge_cases"], *report["snark"]["msm_path"]]
     for name, step in path["steps"].items():
@@ -3475,7 +3652,7 @@ def main() -> int:
                      "shape": f"n={path['n']} c={path['c']} W={path['windows']} m={path['m']}",
                      "fq_products": path["fq_products"][name]})
     report["total_s"] = time.perf_counter() - t_all
-    print(f"[15] seconds by phase: "
+    print(f"[16] seconds by phase: "
           + ", ".join(f"{n}: {t:.1f}" for n, t in report["phase_s"].items())
           + f"; total {report['total_s']:.1f} s", flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -139,6 +139,52 @@ def test_permute_and_compress_kernels(cuda):
     _same(p2.compress16(s), p2.permute_plain(s)[:, :8])
 
 
+@pytest.mark.parametrize("n", [1, 3, 1000, 1 << 18])
+def test_permute24_kernel(cuda, n):
+    """The width-24 permutation: one launch of its own counter, none of
+    width 16's; exact against the plain version."""
+    s = _rand(24 + n, (n, 24), cuda)
+    assert s.data_ptr() % 16 == 0
+    before16, before24 = dict(p2.launches), p2.launches_w24["poseidon2_permute24"]
+    got = p2.permute(s)
+    assert p2.launches_w24["poseidon2_permute24"] == before24 + 1
+    assert p2.launches == before16
+    _same(got, p2.permute_plain(s))
+
+
+def test_permute16_unchanged_beside_width_24(cuda):
+    """Width 16 after a width-24 launch: its own kernel and counter, equal
+    to the plain version and to the host's C++ permutation."""
+    p2.permute(_rand(5, (64, 24), cuda))
+    s = _rand(6, (1000, 16), cuda)
+    before = p2.launches["poseidon2_permute"]
+    got = p2.permute(s)
+    assert p2.launches["poseidon2_permute"] == before + 1
+    _same(got, p2.permute_plain(s))
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  p2.permute_np(s.cpu().numpy().view(np.uint32)))
+
+
+def test_permute24_follows_overrides(cuda):
+    """`load_constants(24, ...)` reaches the width-24 kernel's tables (and
+    leaves width 16's alone); `reset_constants` brings the derived ones back."""
+    s24, s16 = _rand(7, (300, 24), cuda), _rand(8, (300, 16), cuda)
+    want16 = p2.permute_plain(s16)
+    saved = dict(p2._OVERRIDES)
+    try:
+        rng = np.random.default_rng(11)
+        p2.load_constants(24, rng.integers(0, bb.P, (8, 24)), rng.integers(0, bb.P, 21),
+                          rng.integers(0, bb.P, 24))
+        got = p2.permute(s24)
+        _same(got, p2.permute_plain(s24))
+        _same(p2.permute(s16), want16)
+    finally:
+        p2.reset_constants()
+        p2._OVERRIDES.update(saved)
+    assert not torch.equal(p2.permute(s24).cpu(), got.cpu())
+    _same(p2.permute(s24), p2.permute_plain(s24))
+
+
 @pytest.mark.parametrize("log_h", range(1, 14))
 def test_compress_levels_kernel(cuda, log_h):
     d = _rand(log_h, (1 << log_h, 8), cuda)
@@ -259,6 +305,8 @@ def test_wrappers_reject_misaligned_input(cuda):
     16-byte vectors, so the wrappers raise before launching."""
     with pytest.raises(ValueError):
         p2.permute(_rand(6, (16 * 8 + 1,), cuda)[1:].view(8, 16))
+    with pytest.raises(ValueError):
+        p2.permute(_rand(6, (24 * 8 + 1,), cuda)[1:].view(8, 24))
     with pytest.raises(ValueError):
         p2.compress16(_rand(7, (16 * 8 + 1,), cuda)[1:].view(8, 16))
     with pytest.raises(ValueError):
@@ -1010,6 +1058,38 @@ def test_rv32_v0_proof_cuda_equals_cpu(cuda):
     b = machine.prove_machine(insts, fast_test_config(), device="cpu")
     _proofs_equal(a, b)
     assert machine.verify_machine([x for x, _ in air_traces], a, fast_test_config(), device=cuda)
+
+
+def test_rv32_v1_proof_cuda_equals_cpu(cuda):
+    """The v1 chipset's array-sum loop (branches, LW/SW) proved at
+    fast_test_config() on the card and on the host: equal but for `stat`;
+    the card's verifies, and not against another program."""
+    from zkvm_prover_tpu_torch.models import rv32_v1
+    from zkvm_prover_tpu_torch.stark import machine
+    from zkvm_prover_tpu_torch.stark.config import fast_test_config
+    from zkvm_prover_tpu_torch.vm import asm
+
+    words = asm.assemble([
+        asm.lui("s2", 1), asm.addi("t0", "zero", 1), asm.addi("t1", "zero", 0),
+        asm.addi("t2", "zero", 40), ("label", "fill"), asm.add("t6", "s2", "t1"),
+        asm.sw("t0", "t6", 0), asm.addi("t0", "t0", 3), asm.addi("t1", "t1", 4),
+        ("branch", asm.bne, "t1", "t2", "fill"), asm.addi("s0", "zero", 0),
+        asm.addi("t1", "zero", 0), ("label", "sum"), asm.add("t6", "s2", "t1"),
+        asm.lw("t3", "t6", 0), asm.add("s0", "s0", "t3"), asm.addi("t1", "t1", 4),
+        ("branch", asm.bne, "t1", "t2", "sum"), ("jal", "ra", "done"),
+        asm.addi("s0", "zero", 0), ("label", "done"), asm.halt(0)])
+    ex, _, air_traces = rv32_v1.execute_and_trace(words)
+    assert ex.get_reg(asm.REGS["s0"]) == sum(1 + 3 * i for i in range(10))
+    insts = [machine.AirInstance(a, t, []) for a, t in air_traces]
+    a = machine.prove_machine(insts, fast_test_config(), device=cuda)
+    b = machine.prove_machine(insts, fast_test_config(), device="cpu")
+    _proofs_equal(a, b)
+    airs = [x for x, _ in air_traces]
+    assert machine.verify_machine(airs, a, fast_test_config(), device=cuda)
+    other = list(words)
+    other[1] = asm.assemble([asm.addi("t0", "zero", 2)])[0]
+    assert not machine.verify_machine([airs[0], rv32_v1.ProgramAirV1(other)] + airs[2:], a,
+                                      fast_test_config(), device=cuda)
 
 
 def test_chunk_benchmark_on_the_card(cuda, tmp_path, monkeypatch, capsys):

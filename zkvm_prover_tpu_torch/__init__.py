@@ -15,7 +15,8 @@ Layout (the reference's module names, PyTorch inside):
   stark/     config, Merkle commitments, challenger, FRI, prover, verifier,
              the multi-AIR machine prover and verifier
   models/    AIR interface and builders, the Fibonacci / Poseidon2 / lookup
-             AIRs, the rv32 machine's RV32IM and keccak chips, the vk stream
+             AIRs, the rv32 machine's RV32IM and keccak chips (and the
+             earlier v0 and v1 chipsets), the vk stream
   vm/        RV32IM assembler, native executor binding, benchmark and
              hash-reveal guests
   host/      the entry point: proving tasks, apps, Prover (disk cache,

@@ -1,7 +1,7 @@
-// Poseidon2 over BabyBear, width 16: permutation, row sponge and Merkle
-// compression.
+// Poseidon2 over BabyBear: the width-16 permutation, row sponge and Merkle
+// compression, and the width-24 permutation.
 //
-// Replaces: zkvm_prover_tpu/ops/poseidon2.py `permute` (width 16),
+// Replaces: zkvm_prover_tpu/ops/poseidon2.py `permute` (widths 16 and 24),
 // `hash_rows` and `compress`, and the level loop of stark/merkle.py
 // `_commit_levels`: the XLA code behind every Merkle leaf layer and level,
 // and the proof-of-work nonce batch (stark/challenger.py `grind`).
@@ -26,6 +26,14 @@
 // its S-box. The sums of the external layer are issued as IMAD a*1+b
 // (`add_mp`): the ALU pipe carries the reductions and the internal layer,
 // and the split measured fastest on the card.
+//
+// Width 24 (`permute24_kernel`) is the same core templated on the width
+// (`Width<W>`): its own constant tables (8 x 24 external, 21 internal, 24
+// diagonal; `p2_set_constants24`), six groups of 4 in the external layer,
+// and 23 lanes summed as a tree in the internal one. One permutation is
+// 1,356 products (8 x 24 x 4 + 21 x (4 + 24)) against 96 bytes in and 96
+// out, so it too is bound by the multiply pipe. A thread holds its 24 lanes
+// in registers; rows are 96 bytes, read and written as six 16-byte vectors.
 //
 // hash_rows: a CTA owns HR_ROWS rows (one per thread) and walks the columns
 // in chunks of HR_CHUNK words. Each chunk is copied to shared memory with
@@ -54,6 +62,7 @@ constexpr int WIDTH = 16;
 constexpr int RATE = 8;
 constexpr int ROUNDS_F = 8;
 constexpr int ROUNDS_P = 13;
+constexpr int ROUNDS_P24 = 21;
 constexpr int THREADS = 128;
 
 constexpr int HR_ROWS = 128;
@@ -66,7 +75,30 @@ constexpr int CP_MAX_LEVELS = 10;  // log2(2 * CP_THREADS)
 __constant__ uint32_t c_ext[ROUNDS_F * WIDTH];
 __constant__ uint32_t c_int[ROUNDS_P];
 __constant__ uint32_t c_diag[WIDTH];
+__constant__ uint32_t c_ext24[ROUNDS_F * 24];
+__constant__ uint32_t c_int24[ROUNDS_P24];
+__constant__ uint32_t c_diag24[24];
 __constant__ uint32_t c_one;  // 1, set at run time so the compiler cannot fold it
+
+// The round count and constant tables of a width.
+template <int W>
+struct Width;
+
+template <>
+struct Width<16> {
+  static constexpr int rounds_p = ROUNDS_P;
+  __device__ static uint32_t ext(int i) { return c_ext[i]; }
+  __device__ static uint32_t internal(int r) { return c_int[r]; }
+  __device__ static uint32_t diag(int i) { return c_diag[i]; }
+};
+
+template <>
+struct Width<24> {
+  static constexpr int rounds_p = ROUNDS_P24;
+  __device__ static uint32_t ext(int i) { return c_ext24[i]; }
+  __device__ static uint32_t internal(int r) { return c_int24[r]; }
+  __device__ static uint32_t diag(int i) { return c_diag24[i]; }
+};
 
 // a + b mod p with the sum issued on the multiply pipe as a * 1 + b.
 __device__ __forceinline__ uint32_t add_mp(uint32_t a, uint32_t b) {
@@ -84,11 +116,13 @@ __device__ __forceinline__ uint32_t sbox(uint32_t s, uint32_t c) {
   return bb::canon(bb::smul(x4, x3));
 }
 
-// M_E = circ(2 M4, M4, M4, M4): M4 on each group of 4, then each lane adds
-// the sum of its position across the 4 groups.
-__device__ __forceinline__ void external_linear(uint32_t s[WIDTH]) {
+// M_E = circ(2 M4, M4, ..., M4): M4 on each group of 4, then each lane adds
+// the sum of its position across the W / 4 groups.
+template <int W>
+__device__ __forceinline__ void external_linear(uint32_t s[W]) {
+  static_assert(W == 16 || W == 24, "Poseidon2 widths are 16 and 24");
 #pragma unroll
-  for (int g = 0; g < WIDTH; g += 4) {
+  for (int g = 0; g < W; g += 4) {
     const uint32_t a = s[g], b = s[g + 1], c = s[g + 2], d = s[g + 3];
     const uint32_t t01 = add_mp(a, b);
     const uint32_t t23 = add_mp(c, d);
@@ -102,66 +136,95 @@ __device__ __forceinline__ void external_linear(uint32_t s[WIDTH]) {
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const uint32_t acc =
-        add_mp(add_mp(s[k], s[4 + k]), add_mp(s[8 + k], s[12 + k]));
+    uint32_t acc = add_mp(add_mp(s[k], s[4 + k]), add_mp(s[8 + k], s[12 + k]));
+    if constexpr (W == 24) acc = add_mp(acc, add_mp(s[16 + k], s[20 + k]));
 #pragma unroll
-    for (int g = 0; g < WIDTH; g += 4) s[g + k] = add_mp(s[g + k], acc);
+    for (int g = 0; g < W; g += 4) s[g + k] = add_mp(s[g + k], acc);
   }
 }
 
-__device__ __forceinline__ void external_round(uint32_t s[WIDTH], int r) {
+template <int W>
+__device__ __forceinline__ void external_round(uint32_t s[W], int r) {
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = sbox(s[i], c_ext[r * WIDTH + i]);
-  external_linear(s);
+  for (int i = 0; i < W; ++i) s[i] = sbox(s[i], Width<W>::ext(r * W + i));
+  external_linear<W>(s);
 }
 
 // S-box on lane 0, then M_I = 1 + diag(v): every lane gets the lane sum
-// plus diag_i * x_i. Lanes 1..15 are summed while lane 0's S-box runs.
-__device__ __forceinline__ void internal_round(uint32_t s[WIDTH], int r) {
-  const uint32_t x0 = sbox(s[0], c_int[r]);
-  uint32_t t[8];
+// plus diag_i * x_i. Lanes 1..W-1 are summed while lane 0's S-box runs.
+template <int W>
+__device__ __forceinline__ void internal_round(uint32_t s[W], int r) {
+  const uint32_t x0 = sbox(s[0], Width<W>::internal(r));
+  constexpr int H = W / 2;
+  uint32_t t[H];
 #pragma unroll
-  for (int i = 0; i < 7; ++i) t[i] = bb::add(s[2 * i + 1], s[2 * i + 2]);
-  t[7] = s[15];
+  for (int i = 0; i < H - 1; ++i) t[i] = bb::add(s[2 * i + 1], s[2 * i + 2]);
+  t[H - 1] = s[W - 1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) t[i] = bb::add(t[2 * i], t[2 * i + 1]);
-  const uint32_t sum =
-      bb::add(bb::add(bb::add(t[0], t[1]), bb::add(t[2], t[3])), x0);
-  s[0] = bb::add(sum, bb::mul(c_diag[0], x0));
+  for (int i = 0; i < H / 2; ++i) t[i] = bb::add(t[2 * i], t[2 * i + 1]);
+  uint32_t sum;
+  if constexpr (W == 16) {
+    sum = bb::add(bb::add(bb::add(t[0], t[1]), bb::add(t[2], t[3])), x0);
+  } else {
 #pragma unroll
-  for (int i = 1; i < WIDTH; ++i) s[i] = bb::add(sum, bb::mul(c_diag[i], s[i]));
+    for (int i = 0; i < 3; ++i) t[i] = bb::add(t[2 * i], t[2 * i + 1]);
+    sum = bb::add(bb::add(bb::add(t[0], t[1]), t[2]), x0);
+  }
+  s[0] = bb::add(sum, bb::mul(Width<W>::diag(0), x0));
+#pragma unroll
+  for (int i = 1; i < W; ++i) s[i] = bb::add(sum, bb::mul(Width<W>::diag(i), s[i]));
 }
 
-__device__ void permute(uint32_t s[WIDTH]) {
-  external_linear(s);
+template <int W>
+__device__ void permute(uint32_t s[W]) {
+  external_linear<W>(s);
 #pragma unroll 1
-  for (int r = 0; r < ROUNDS_F / 2; ++r) external_round(s, r);
+  for (int r = 0; r < ROUNDS_F / 2; ++r) external_round<W>(s, r);
 #pragma unroll 1
-  for (int r = 0; r < ROUNDS_P; ++r) internal_round(s, r);
+  for (int r = 0; r < Width<W>::rounds_p; ++r) internal_round<W>(s, r);
 #pragma unroll 1
-  for (int r = ROUNDS_F / 2; r < ROUNDS_F; ++r) external_round(s, r);
+  for (int r = ROUNDS_F / 2; r < ROUNDS_F; ++r) external_round<W>(s, r);
 }
 
-__device__ __forceinline__ void load16(uint32_t s[WIDTH], const uint4* src) {
+// W words from 16-byte-aligned src into s, and back.
+template <int W>
+__device__ __forceinline__ void load_lanes(uint32_t s[W], const uint4* src) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < W / 4; ++q) {
     const uint4 v = src[q];
     s[4 * q] = v.x; s[4 * q + 1] = v.y; s[4 * q + 2] = v.z; s[4 * q + 3] = v.w;
   }
 }
 
+template <int W>
+__device__ __forceinline__ void store_lanes(uint4* dst, const uint32_t s[W]) {
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q)
+    dst[q] = make_uint4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+}
+
+// One state of W lanes per thread.
+template <int W>
+__device__ __forceinline__ void permute_rows(const uint32_t* __restrict__ in,
+                                             uint32_t* __restrict__ out, int64_t S) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= S) return;
+  uint32_t s[W];
+  load_lanes<W>(s, reinterpret_cast<const uint4*>(in + t * W));
+  permute<W>(s);
+  store_lanes<W>(reinterpret_cast<uint4*>(out + t * W), s);
+}
+
 __global__ void __launch_bounds__(THREADS)
 permute_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                int64_t S) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= S) return;
-  uint32_t s[WIDTH];
-  load16(s, reinterpret_cast<const uint4*>(in + t * WIDTH));
-  permute(s);
-  uint4* dst = reinterpret_cast<uint4*>(out + t * WIDTH);
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    dst[q] = make_uint4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+  permute_rows<WIDTH>(in, out, S);
+}
+
+__global__ void __launch_bounds__(THREADS)
+permute24_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                 int64_t S) {
+  permute_rows<24>(in, out, S);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
@@ -222,7 +285,7 @@ hash_rows_kernel(const uint32_t* __restrict__ mat, int64_t S, int C,
     for (int b = 0; b < nb; ++b) {
 #pragma unroll
       for (int i = 0; i < RATE; ++i) s[i] = row[b * RATE + i];
-      permute(s);
+      permute<WIDTH>(s);
     }
     __syncthreads();
   }
@@ -250,9 +313,9 @@ compress_kernel(const uint32_t* __restrict__ in, int64_t n_in, int levels,
     const int m = span >> j;
     uint32_t s[WIDTH];
     if (t < m) {
-      load16(s, j == 1 ? reinterpret_cast<const uint4*>(in + (base + 2 * t) * RATE)
-                       : &level[4 * t]);
-      permute(s);
+      load_lanes<WIDTH>(s, j == 1 ? reinterpret_cast<const uint4*>(in + (base + 2 * t) * RATE)
+                                  : &level[4 * t]);
+      permute<WIDTH>(s);
     }
     __syncthreads();  // the previous level is read before it is overwritten
     if (t < m) {
@@ -290,6 +353,26 @@ extern "C" int p2_permute(const uint32_t* in, uint32_t* out, int64_t S,
                           void* stream) {
   permute_kernel<<<blocks_for(S, THREADS), THREADS, 0,
                    static_cast<cudaStream_t>(stream)>>>(in, out, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Host tables of width 24 (Montgomery form): external (8, 24), internal
+// (21,), diag (24,).
+extern "C" int p2_set_constants24(const uint32_t* ext, const uint32_t* internal,
+                                  const uint32_t* diag) {
+  const uint32_t one = 1;
+  cudaError_t e = cudaMemcpyToSymbol(c_one, &one, sizeof(c_one));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_ext24, ext, sizeof(c_ext24));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_int24, internal, sizeof(c_int24));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_diag24, diag, sizeof(c_diag24));
+  return static_cast<int>(e);
+}
+
+// (S, 24) states, rows 16-byte aligned.
+extern "C" int p2_permute24(const uint32_t* in, uint32_t* out, int64_t S,
+                            void* stream) {
+  permute24_kernel<<<blocks_for(S, THREADS), THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(in, out, S);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,7 +35,8 @@ CUDA_BIN = "/usr/local/cuda/bin"
 # C entry point of the library -> the kernels it launches, in order
 ENTRY_KERNELS = {
     "ntt_pass": ["ntt_pass_kernel"],
-    "p2_permute": ["permute_kernel"], "p2_hash_rows": ["hash_rows_kernel"],
+    "p2_permute": ["permute_kernel"], "p2_permute24": ["permute24_kernel"],
+    "p2_hash_rows": ["hash_rows_kernel"],
     "p2_compress": ["compress_kernel"], "mont_matmul_rows": ["mm_rows_kernel"],
     "mont_matmul_cols": ["mm_cols_kernel", "mm_cols_finish"],
     "bn254_msm_chunks": ["msm_chunks_kernel"], "bn254_msm_reduce": ["msm_reduce_kernel"],

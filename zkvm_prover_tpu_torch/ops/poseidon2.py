@@ -5,11 +5,12 @@ of S states is an (S, WIDTH) int32 tensor of Montgomery residues. External
 rounds use M_E = circ(2 M4, M4, ...), internal rounds M_I = I + diag(v),
 S-box x^7; 8 external rounds, 13 internal (width 16) or 21 (width 24).
 
-Kernel K2 (`csrc/poseidon2.cu`) runs the width-16 permutation, the row
-sponge (`hash_rows`) and the 2:1 compression for CUDA tensors, the latter
-several Merkle levels per launch (`compress_levels`); a CPU tensor takes the
-plain torch version. Width 24 is off the proving path and has no kernel yet:
-it runs on CPU tensors only.
+Kernel K2 (`csrc/poseidon2.cu`) runs the permutation at both widths, the
+row sponge (`hash_rows`) and the 2:1 compression for CUDA tensors, the
+latter several Merkle levels per launch (`compress_levels`); a CPU tensor
+takes the plain torch version. Width 24 is off the proving path; its
+launches have their own counter (`launches_w24`), so that the proving
+paths' checks that every counter moved read `launches` alone.
 
 The host side (challenger, verifier, the wire circuit builder) permutes
 with `permute_np`: the reference's native C++ permutation (`p2_native.py`),
@@ -52,6 +53,7 @@ DIGEST = 8
 
 launches = {"poseidon2_permute": 0, "poseidon2_hash_rows": 0,
             "poseidon2_compress": 0}
+launches_w24 = {"poseidon2_permute24": 0}
 
 
 def _parse_diag_entry(e) -> int:
@@ -234,20 +236,21 @@ def compress_levels_plain(digests, n_levels):
 # Kernel wrappers (K2)
 # ---------------------------------------------------------------------------
 
-_INSTALLED = {}  # device index -> constants version in the kernel's memory
+_INSTALLED = {}  # (device index, width) -> constants version in the kernel's memory
+_SET_CONSTANTS = {16: "p2_set_constants", 24: "p2_set_constants24"}
 
 
-def _lib_for(device):
+def _lib_for(device, width=WIDTH):
     lib = _build.lib()
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    if _INSTALLED.get(idx) != _VERSION[0]:
+    if _INSTALLED.get((idx, width)) != _VERSION[0]:
         ext, internal, diag = (np.ascontiguousarray(t, dtype=np.uint32)
-                               for t in _get_constants(WIDTH))
+                               for t in _get_constants(width))
+        name = _SET_CONSTANTS[width]
         with torch.cuda.device(idx):
-            _build.check(lib.p2_set_constants(
-                ext.ctypes.data, internal.ctypes.data, diag.ctypes.data),
-                "p2_set_constants")
-        _INSTALLED[idx] = _VERSION[0]
+            _build.check(getattr(lib, name)(
+                ext.ctypes.data, internal.ctypes.data, diag.ctypes.data), name)
+        _INSTALLED[(idx, width)] = _VERSION[0]
     return lib
 
 
@@ -267,22 +270,25 @@ def _check(x, cols=None, aligned=False):
 
 
 def permute(state):
-    """Permutation of (S, width) states; width 16 on the card."""
+    """Permutation of (S, width) states, width 16 or 24."""
     width = state.shape[-1]
     if width not in ROUNDS_P:
         raise ValueError(f"no Poseidon2 of width {width}")
     _check(state, aligned=True)
     if state.device.type == "cpu":
         return permute_plain(state)
-    if width != WIDTH:
-        raise NotImplementedError("width-24 Poseidon2 has no CUDA kernel yet")
     out = torch.empty_like(state)
     if state.shape[0]:
-        lib = _lib_for(state.device)
-        _build.check(lib.p2_permute(state.data_ptr(), out.data_ptr(),
-                                    state.shape[0], _build.stream(state.device)),
-                     "p2_permute")
-        launches["poseidon2_permute"] += 1
+        lib = _lib_for(state.device, width)
+        stream = _build.stream(state.device)
+        if width == WIDTH:
+            _build.check(lib.p2_permute(state.data_ptr(), out.data_ptr(),
+                                        state.shape[0], stream), "p2_permute")
+            launches["poseidon2_permute"] += 1
+        else:
+            _build.check(lib.p2_permute24(state.data_ptr(), out.data_ptr(),
+                                          state.shape[0], stream), "p2_permute24")
+            launches_w24["poseidon2_permute24"] += 1
     return out
 
 
