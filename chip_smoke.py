@@ -182,11 +182,17 @@ at a shape some check of the run covered:
      a checked shape, its proving launches equal to the serial leaf's;
      the root proved here, verified, its digest the node digest over the
      two leaves; the pool's leaf level against the serial leaf's seconds;
- 15. (a) the width-24 Poseidon2 permutation (`permute24_kernel`) called
-     once through `ops.poseidon2.permute` on (2^18, 24) states from
-     --seed with the launch counts zeroed just before and read just after
-     (one launch of its own counter, no other), then against its plain
-     version: ms, plain ms, bound, registers and spills (ptxas); (b) the
+ 15. (a) the width-24 Poseidon2 permutation (`permute24_kernel`), each of
+     its two instances called once through `ops.poseidon2.permute` on
+     (2^18, 24) states from --seed with the launch counts zeroed just
+     before and read just after (one launch of that instance's counter, no
+     other): the shift-form diagonal under the derived constants, the
+     general one under a diagonal from --seed; each against its plain
+     version: ms, plain ms, bound (each from its own products: 852 a
+     permutation with the shift-form diagonal, 1,356 with products);
+     registers, SASS instructions and wide multiplies (phase 1's) and
+     spills (ptxas; a spill fails) of both and of the three width-16
+     kernels; (b) the
      rv32 v1 chipset (branches, loops, word RAM) at its largest run, 4,096
      cycles (timestamp differences are 16-bit range-checked): a
      fibonacci loop of 799 iterations (4,000 cycles) and an LW/SW
@@ -231,19 +237,27 @@ def _permute_shape(entry: str):
     return lambda a: f"({a[2]},{PERMUTE_WIDTHS[entry]})"
 
 
-# C entry point -> (launch counter, shape from the scalar arguments)
+# C entry point -> (launch counter, or the counter from the scalar
+# arguments, and the shape from them)
 ENTRY_SHAPES = {
     "ntt_pass": ("ntt_pass", lambda a: f"n={a[4]} W={a[5]} a={a[6]} L={a[7]}"
                  f"{' dit' if a[8] else ''}{'' if a[1] == a[5] else f' ld_x={a[1]}'}"
                  f"{'' if a[3] == a[5] else f' ld_y={a[3]}'}"
                  f"{'' if a[10] is None else ' pre'}{'' if a[11] is None else ' post'}"),
     "p2_permute": ("poseidon2_permute", _permute_shape("p2_permute")),
-    "p2_permute24": ("poseidon2_permute24", _permute_shape("p2_permute24")),
+    "p2_permute24": (lambda a: "poseidon2_permute24" if a[3] else "poseidon2_permute24_general",
+                     _permute_shape("p2_permute24")),
     "p2_hash_rows": ("poseidon2_hash_rows", lambda a: f"({a[1]},{a[2]})"),
     "p2_compress": ("poseidon2_compress", lambda a: f"{a[1]} digests, {a[2]} levels"),
     "mont_matmul_rows": ("mont_matmul_rows", lambda a: f"({a[2]},{a[3]}) k={a[4]}"),
     "mont_matmul_cols": ("mont_matmul_cols", lambda a: f"({a[2]},{a[3]})^T k={a[4]}"),
 }
+
+
+def entry_counter(entry: str, args) -> str:
+    """The launch counter of a C call (`ENTRY_SHAPES`)."""
+    counter = ENTRY_SHAPES[entry][0]
+    return counter(args) if callable(counter) else counter
 
 
 def card_line() -> str:
@@ -597,15 +611,14 @@ def profile_proof(prove, trace_path: str) -> dict:
             mine.append(e)
         per_kernel[name][0] += 1
         per_kernel[name][1] += e["dur"] / 1e3
-    expected = [(entry, k, ENTRY_SHAPES[entry][1](args))
+    expected = [(entry_counter(entry, args), k, ENTRY_SHAPES[entry][1](args))
                 for entry, args in calls for k in ENTRY_KERNELS[entry]]
     per_shape = collections.defaultdict(lambda: [0, 0.0])
     matched = len(expected) == len(mine) and all(
         k in e["name"] for (_, k, _), e in zip(expected, mine))
     if matched:
-        for (entry, k, shape), e in zip(expected, mine):
-            key = (ENTRY_SHAPES[entry][0] + ("/finish" if k == "mm_cols_finish" else ""),
-                   shape)
+        for (counter, k, shape), e in zip(expected, mine):
+            key = (counter + ("/finish" if k == "mm_cols_finish" else ""), shape)
             per_shape[key][0] += 1
             per_shape[key][1] += e["dur"] / 1e3
     # the LDE: from the proof's start to the first row hash (the trace commit)
@@ -3249,51 +3262,90 @@ def parallel_cell(trace, log_n: int, seed: int) -> dict:
 P2_WIDE_BATCH = 1 << 18
 P2_WIDE_SOURCE = "zkvm_prover_tpu_torch/csrc/poseidon2.cu"
 P2_WIDE_REPLACES = "zkvm_prover_tpu/ops/poseidon2.py:182"
+# launch counter -> (kernel instance, Montgomery products a permutation):
+# the standard diagonal by shifts leaves the S-boxes' 8*24*4 + 21*4; any
+# installed diagonal by products adds 21*24
+P2_WIDE_KERNELS = {"poseidon2_permute24": ("permute24_kernel<true>", 852),
+                   "poseidon2_permute24_general": ("permute24_kernel<false>",
+                                                   MODMULS_PER_PERM24)}
+P2_NARROW_KERNELS = ("permute_kernel", "hash_rows_kernel", "compress_kernel")
 V1_FIB_ITERS = 799            # 3 + 5 * 799 + 2 = 4,000 cycles
 V1_RAM_WORDS = 400            # 4 + 10 * 400 + 4 = 4,008 cycles
 V1_DATA = 0x1000
 
 
-def permute24_cell(seed: int) -> dict:
-    """Phase 15 (a): `ops.poseidon2.permute` on (2^18, 24) states, once
-    with the counts zeroed (one width-24 launch, no other), then against
-    its plain version, timed, and its registers and spills from ptxas."""
+def permute24_cell(seed: int, resources: dict) -> dict:
+    """Phase 15 (a): `ops.poseidon2.permute` on (2^18, 24) states from
+    `seed`, once for each kernel instance with the counts zeroed (one launch
+    of that instance's counter, no other): the shift instance under the
+    derived constants, the general one under the derived round constants
+    and a diagonal from `seed`; each against its plain version, timed, and
+    its bound from its own products. Registers, SASS instructions and wide
+    multiplies (`resources`, phase 1's `kernel_resources`) and spills
+    (ptxas) of both instances and of the three width-16 kernels; a spill
+    fails."""
+    import numpy as np
     import torch
 
     from zkvm_prover_tpu_torch import _build, kernel_report
+    from zkvm_prover_tpu_torch.fields import babybear as bb
     from zkvm_prover_tpu_torch.ops import poseidon2 as p2
+
+    ptxas = kernel_report.ptxas_resources(_build.ptxas_log())
+    kernels = {}
+    for name in (*(k for k, _ in P2_WIDE_KERNELS.values()), *P2_NARROW_KERNELS):
+        row = {**resources.get(name, {}), "ptxas": ptxas.get(name, {})}
+        if row["ptxas"].get("spill_stores", 1) or row["ptxas"].get("spill_loads", 1):
+            raise AssertionError(f"{name} spills or was not reported: {row}")
+        kernels[name] = row
+        print(f"[15] {name:24s} registers {row.get('registers')}, SASS {row.get('instructions')}, "
+              f"wide multiplies {row.get('wide_muls')}; ptxas {row['ptxas']}", flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     states = random_field(gen, (P2_WIDE_BATCH, 24), dev)
-    torch.cuda.synchronize()
-    reset_counts()
-    with log_calls() as used:
-        out = p2.permute(states)
-        torch.cuda.synchronize()
-    launched = p2.launches_w24["poseidon2_permute24"]
-    others = {k: v for k, v in launch_counts().items() if v}
-    entries = [e for e, _ in used]
-    if launched != 1 or others or entries != ["p2_permute24"]:
-        raise AssertionError(f"permute on (2^18, 24) launched {launched}, {others}, {entries}")
-    err = max_err(out, p2.permute_plain(states))
-    ms = time_ms(lambda: p2.permute(states))
-    plain_ms = time_ms(lambda: p2.permute_plain(states), reps=1, warmup=False)
+    ext, internal, _ = (bb.from_monty_np(t) for t in p2.constants(24))
+    rows = []
     nbytes = P2_WIDE_BATCH * 24 * 4 * 2
-    b_ms, b_by = bound_ms(nbytes, P2_WIDE_BATCH * MODMULS_PER_PERM24 * MULS_PER_MODMUL)
-    res = kernel_report.ptxas_resources(_build.ptxas_log()).get("permute24_kernel", {})
-    print(f"[15] poseidon2_permute24 ({P2_WIDE_BATCH},24) err={err} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}); launches {launched}; "
-          f"ptxas {res}", flush=True)
-    if err != 0:
-        raise AssertionError("the width-24 permutation disagrees with its plain version")
-    if res.get("spill_stores", 1) or res.get("spill_loads", 1):
-        raise AssertionError(f"permute24_kernel spills or was not reported: {res}")
+    saved = dict(p2._OVERRIDES)
+    try:
+        for counter, (kernel, modmuls) in P2_WIDE_KERNELS.items():
+            if kernel.endswith("<false>"):
+                p2.load_constants(24, ext, internal,
+                                  np.random.default_rng(seed).integers(0, bb.P, 24))
+            torch.cuda.synchronize()
+            reset_counts()
+            with log_calls() as used:
+                out = p2.permute(states)
+                torch.cuda.synchronize()
+            launched = p2.launches_w24[counter]
+            others = {k: v for k, v in {**launch_counts(), **p2.launches_w24}.items()
+                      if v and k != counter}
+            entries = [e for e, _ in used]
+            if launched != 1 or others or entries != ["p2_permute24"]:
+                raise AssertionError(f"permute on (2^18, 24) launched {launched} of {counter}, "
+                                     f"{others}, {entries}")
+            err = max_err(out, p2.permute_plain(states))
+            ms = time_ms(lambda: p2.permute(states), reps=20)
+            plain_ms = time_ms(lambda: p2.permute_plain(states), reps=1, warmup=False)
+            b_ms, b_by = bound_ms(nbytes, P2_WIDE_BATCH * modmuls * MULS_PER_MODMUL)
+            print(f"[15] {counter} ({P2_WIDE_BATCH},24) err={err} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}, {modmuls} products "
+                  f"a permutation); launches {launched}", flush=True)
+            if err != 0:
+                raise AssertionError(f"{counter} disagrees with its plain version")
+            rows.append({"name": counter, "route": "cuda", "source": P2_WIDE_SOURCE,
+                         "replaces": P2_WIDE_REPLACES, "shape": f"({P2_WIDE_BATCH},24)",
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None, "bytes": nbytes,
+                         "launches": launched, "kernel": kernel, "modmuls": modmuls})
+            p2.reset_constants()
+            p2._OVERRIDES.update(saved)
+    finally:
+        p2.reset_constants()
+        p2._OVERRIDES.update(saved)
     del states, out
-    return {"name": "poseidon2_permute24", "route": "cuda", "source": P2_WIDE_SOURCE,
-            "replaces": P2_WIDE_REPLACES, "shape": f"({P2_WIDE_BATCH},24)", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "bytes": nbytes, "launches": launched, "ptxas": res}
+    return {"instances": rows, "kernels": kernels}
 
 
 def v1_programs() -> dict:
@@ -3591,7 +3643,7 @@ def main() -> int:
     phase_done(14)
 
     # 15. the width-24 permutation, and the rv32 v1 chipset at full size
-    report["permute24"] = permute24_cell(args.seed + 12)
+    report["permute24"] = permute24_cell(args.seed + 12, report["kernel_resources"])
     report["rv32_v1"] = v1_cell(args.seed + 13)
     phase_done(15)
 
@@ -3634,11 +3686,11 @@ def main() -> int:
                      bound_by=row["bound_by"], library_ms=None,
                      shape=row["shape"], bytes=row["bytes"])
         line.append(entry)
-    wide = report["permute24"]
-    line.append({**{key: wide[key] for key in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms", "shape", "bytes")},
-        "launches_by_path": {"permute24": wide["launches"]}})
+    for wide in report["permute24"]["instances"]:
+        line.append({**{key: wide[key] for key in (
+            "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "shape", "bytes")},
+            "launches_by_path": {"permute24": wide["launches"]}})
     path = report["snark"]["msm_path"][0]
     checks = [report["snark"]["msm_edge_cases"], *report["snark"]["msm_path"]]
     for name, step in path["steps"].items():

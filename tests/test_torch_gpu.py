@@ -139,17 +139,75 @@ def test_permute_and_compress_kernels(cuda):
     _same(p2.compress16(s), p2.permute_plain(s)[:, :8])
 
 
-@pytest.mark.parametrize("n", [1, 3, 1000, 1 << 18])
-def test_permute24_kernel(cuda, n):
-    """The width-24 permutation: one launch of its own counter, none of
-    width 16's; exact against the plain version."""
+@pytest.fixture(params=["shift", "general"])
+def instance24(request):
+    """The width-24 kernel instance the installed constants choose: the
+    derived ones take the shift-form diagonal; a random diagonal (the
+    derived round constants kept) takes the general one. Yields the
+    counter of the instance."""
+    saved = dict(p2._OVERRIDES)
+    if request.param == "general":
+        ext, internal, _ = (bb.from_monty_np(t) for t in p2.constants(24))
+        p2.load_constants(24, ext, internal,
+                          np.random.default_rng(9).integers(0, bb.P, 24))
+    try:
+        assert p2.shift_diag24() == (request.param == "shift")
+        yield "poseidon2_permute24" if request.param == "shift" else "poseidon2_permute24_general"
+    finally:
+        p2.reset_constants()
+        p2._OVERRIDES.update(saved)
+
+
+def _wave24(n):
+    """n, or "wave+1": one state past a whole wave of the launch geometry."""
+    if n == "wave+1":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return sms * p2.PERMUTE24_WAVE_PER_SM + 1
+    return n
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 1 << 18, (1 << 18) + 1, "wave+1"])
+def test_permute24_kernel(cuda, instance24, n):
+    """The width-24 permutation, both instances: one launch of its own
+    counter, none of the other instance's or of width 16's; exact against
+    the plain version."""
+    n = _wave24(n)
     s = _rand(24 + n, (n, 24), cuda)
     assert s.data_ptr() % 16 == 0
-    before16, before24 = dict(p2.launches), p2.launches_w24["poseidon2_permute24"]
+    before16, before24 = dict(p2.launches), dict(p2.launches_w24)
     got = p2.permute(s)
-    assert p2.launches_w24["poseidon2_permute24"] == before24 + 1
+    assert p2.launches_w24 == {**before24, instance24: before24[instance24] + 1}
     assert p2.launches == before16
     _same(got, p2.permute_plain(s))
+
+
+def test_permute24_edge_states(cuda, instance24):
+    """All 0, all p - 1, and lanes alternating 1 and p - 1."""
+    s = torch.zeros((3, 24), dtype=bb.DTYPE, device=cuda)
+    s[1] = bb.P - 1
+    s[2, 0::2] = 1
+    s[2, 1::2] = bb.P - 1
+    _same(p2.permute(s), p2.permute_plain(s))
+
+
+def test_permute24_standard_diagonal_other_round_constants(cuda):
+    """An override that keeps the standard diagonal runs the shift instance
+    under its own round constants."""
+    s = _rand(10, (1000, 24), cuda)
+    saved = dict(p2._OVERRIDES)
+    try:
+        rng = np.random.default_rng(12)
+        diag = bb.from_monty_np(p2.constants(24)[2])
+        p2.load_constants(24, rng.integers(0, bb.P, (8, 24)), rng.integers(0, bb.P, 21), diag)
+        assert p2.shift_diag24()
+        before = p2.launches_w24["poseidon2_permute24"]
+        got = p2.permute(s)
+        assert p2.launches_w24["poseidon2_permute24"] == before + 1
+        _same(got, p2.permute_plain(s))
+    finally:
+        p2.reset_constants()
+        p2._OVERRIDES.update(saved)
+    assert not torch.equal(p2.permute(s).cpu(), got.cpu())
 
 
 def test_permute16_unchanged_beside_width_24(cuda):

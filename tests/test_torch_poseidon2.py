@@ -244,3 +244,103 @@ def test_merkle_ragged_rows_return_false():
     ops = merkle.open_indices(tree, [1, 2])
     ops[0].siblings[0] = ops[0].siblings[0][:5]
     assert merkle.verify_openings(root, ops, [8]) is False
+
+
+# ---------------------------------------------------------------------------
+# The width-24 kernel's shift-form diagonal (csrc/poseidon2.cu
+# `add_diag_term`), mirrored in numpy with the kernel's 32-bit wrap-around
+# ---------------------------------------------------------------------------
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _u32(a):
+    return np.asarray(a, np.uint64) & _M32
+
+
+def _reduce(s):
+    """`bb::reduce`: min(s, s - p) in uint32, for s < 2p."""
+    s = _u32(s)
+    return np.minimum(s, _u32(s - np.uint64(P) + np.uint64(1 << 32)))
+
+
+def _add(a, b):
+    return _reduce(_u32(a) + _u32(b))
+
+
+def _canon(r):
+    """`bb::canon` of the int32 word r (a uint32 array): min(r, r + p)."""
+    return np.minimum(r, _u32(r + np.uint64(P)))
+
+
+def _diag_term_np(k, n, x, s):
+    """s + d * x for d = k * 2^-n, as `add_diag_term` computes it."""
+    x, s = _u32(x), _u32(s)
+    if n == 0:
+        m = x
+        if abs(k) >= 2:
+            m = _add(x, x)
+        if abs(k) == 3:
+            m = _add(m, x)
+        if abs(k) == 4:
+            m = _add(m, m)
+        return _add(s, m) if k > 0 else _reduce(s + (np.uint64(P) - m))
+    hi = x >> np.uint64(n)
+    r = _u32(hi * np.uint64(P) + (np.uint64(1 << 32) - _u32(x * np.uint64(15 << (27 - n)))))
+    if k < 0:
+        r = _u32(np.uint64(1 << 32) - r)
+    return _add(s, _canon(r))
+
+
+def test_shift_diagonal_mirror():
+    """Every entry of the standard width-24 diagonal by shifts and adds
+    equals x * d mod p in Python integers, on the edge residues and 10,000
+    seeded ones."""
+    plan = p2.diag_plan(p2.constants(24)[2])
+    rng = np.random.default_rng(24)
+    for (k, n), entry in zip(plan, p2._DIAG24):
+        d = p2._parse_diag_entry(entry)
+        assert (k * pow(2, -n, P)) % P == d
+        edges = [0, 1, P - 1, (1 << max(n, 1)) - 1, 1 << 27, P - (1 << 27)]
+        x = np.concatenate([np.array(edges * 3, np.uint64),
+                            rng.integers(0, P, 10_000, dtype=np.uint64)])
+        s = np.concatenate([np.repeat(np.array([0, P - 1, 1], np.uint64), len(edges)),
+                            rng.integers(0, P, 10_000, dtype=np.uint64)])
+        got = _diag_term_np(k, n, x, s)
+        want = [(int(si) + int(xi) * d) % P for si, xi in zip(s, x)]
+        assert got.tolist() == want, (k, n)
+
+
+def test_diag_plan_follows_the_constants(restore_constants):
+    """The derived constants and an override of the round constants alone
+    take the shift instance; a random diagonal takes the general one."""
+    assert p2.diag_plan(p2.constants(24)[2]) == p2.SHIFT_PLAN24
+    assert p2.shift_diag24()
+    ext, internal, diag = (bb.from_monty_np(t) for t in p2.constants(24))
+    p2.load_constants(24, _rand(31, (8, 24)), _rand(32, (21,)), diag)
+    assert p2.diag_plan(p2._get_constants(24)[2]) == p2.SHIFT_PLAN24
+    assert p2.shift_diag24()
+    p2.load_constants(24, ext, internal, _rand(33, (24,)))
+    assert p2.diag_plan(p2._get_constants(24)[2]) is None
+    assert not p2.shift_diag24()
+    p2.load_constants(24, ext, internal, diag[::-1].copy())
+    assert p2.diag_plan(p2._get_constants(24)[2]) == p2.SHIFT_PLAN24[::-1]
+    assert not p2.shift_diag24()
+    p2.reset_constants()
+    assert p2.shift_diag24()
+
+
+def test_shift_plan_matches_the_kernel_tables():
+    """`SHIFT_PLAN24` is the plan compiled into the kernel (`ShiftDiag<24>`
+    in csrc/poseidon2.cu), and the wrapper's launch geometry is the
+    kernel's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(p2.__file__).resolve().parent.parent / "csrc" / "poseidon2.cu").read_text()
+    body = src[src.index("struct ShiftDiag<24> {"):]
+    k = [int(v) for v in re.search(r"int k\[24\] = \{([^}]*)\}", body).group(1).split(",")]
+    n = [int(v) for v in re.search(r"int n\[24\] = \{([^}]*)\}", body).group(1).split(",")]
+    assert tuple(zip(k, n)) == p2.SHIFT_PLAN24
+    consts = dict(re.findall(r"constexpr int (THREADS|P24_MIN_BLOCKS) = (\d+);", src))
+    assert p2.PERMUTE24_WAVE_PER_SM == int(consts["THREADS"]) * int(consts["P24_MIN_BLOCKS"])

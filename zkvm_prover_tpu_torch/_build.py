@@ -37,7 +37,7 @@ SIGNATURES = {
     "p2_set_constants": [_P, _P, _P],
     "p2_permute": [_P, _P, _L, _P],
     "p2_set_constants24": [_P, _P, _P],
-    "p2_permute24": [_P, _P, _L, _P],
+    "p2_permute24": [_P, _P, _L, _I, _P],
     "p2_hash_rows": [_P, _L, _I, _P, _P],
     "p2_compress": [_P, _L, _I, _P, _P],
     "mont_matmul_rows": [_P, _P, _L, _I, _I, _P, _P],

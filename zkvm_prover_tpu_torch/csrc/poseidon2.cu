@@ -28,12 +28,19 @@
 // and the split measured fastest on the card.
 //
 // Width 24 (`permute24_kernel`) is the same core templated on the width
-// (`Width<W>`): its own constant tables (8 x 24 external, 21 internal, 24
-// diagonal; `p2_set_constants24`), six groups of 4 in the external layer,
-// and 23 lanes summed as a tree in the internal one. One permutation is
-// 1,356 products (8 x 24 x 4 + 21 x (4 + 24)) against 96 bytes in and 96
-// out, so it too is bound by the multiply pipe. A thread holds its 24 lanes
-// in registers; rows are 96 bytes, read and written as six 16-byte vectors.
+// (`Width<W>`), with its own tables (8 x 24 external, 21 internal, 24
+// diagonal; `p2_set_constants24`), six groups of 4 in the external layer
+// and 23 lanes summed as a tree in the internal one; a thread holds its 24
+// lanes in registers, and rows of 96 bytes are read and written as six
+// 16-byte vectors. It has two instances, which the wrapper chooses from the
+// installed constants. The general one reads any diagonal from its table:
+// 1,356 products a permutation (8 x 24 x 4 + 21 x (4 + 24)). The shift
+// instance computes the standard diagonal, whose entries are +-1..4 and
+// +-2^-n (`ShiftDiag<24>`), with shifts, IMADs and adds (`add_diag_term`),
+// leaving the 852 S-box products on the multiply pipe. The two instances
+// issue different adds as IMADs (`permute24_kernel`). At most 64
+// registers, 8 resident CTAs of 128 threads per SM, make (2^18, 24) 1.94
+// waves on 132 SMs.
 //
 // hash_rows: a CTA owns HR_ROWS rows (one per thread) and walks the columns
 // in chunks of HR_CHUNK words. Each chunk is copied to shared memory with
@@ -107,6 +114,63 @@ __device__ __forceinline__ uint32_t add_mp(uint32_t a, uint32_t b) {
   return bb::reduce(s);
 }
 
+// a + b mod p: on the multiply pipe (`add_mp`) with kMp, else where the
+// compiler puts it (`bb::add`).
+template <bool kMp>
+__device__ __forceinline__ uint32_t add_on(uint32_t a, uint32_t b) {
+  if constexpr (kMp) return add_mp(a, b);
+  else return bb::add(a, b);
+}
+
+// The standard width-24 diagonal (Plonky3's, ops/poseidon2.py `_DIAG24`)
+// as lane i's entry = k[i] * 2^-n[i]: `SHIFT_PLAN24` of ops/poseidon2.py,
+// which a CPU test holds equal to these tables.
+template <int W>
+struct ShiftDiag;
+
+template <>
+struct ShiftDiag<24> {
+  static constexpr int k[24] = {-2, 1, 2, 1, 3, 4, -1, -3, -4, 1, 1, 1,
+                                1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1, 1};
+  static constexpr int n[24] = {0, 0, 0, 1, 0, 0, 1, 0, 0, 8, 2, 3,
+                                4, 5, 6, 27, 8, 2, 3, 4, 5, 6, 27, 2};
+};
+
+// sum + d * x mod p for canonical sum and x and d = K * 2^-N (N = 0 and
+// K in +-{1, 2, 3, 4}, or K = +-1 and N in [1, 27]), with no Montgomery
+// product. Since 15 * 2^27 = p - 1, 2^-N = -15 * 2^(27 - N) mod p, so with
+// x = hi * 2^N + lo, x * 2^-N = hi - 15 * 2^(27 - N) * lo, which lies in
+// (-p, p / 2^N]: the same 32-bit word as hi * p - 15 * 2^(27 - N) * x mod
+// 2^32, two IMADs beside the shift. kMp: the pipe of the adds.
+template <int K, int N, bool kMp>
+__device__ __forceinline__ uint32_t add_diag_term(uint32_t sum, uint32_t x) {
+  static_assert((N == 0 && K != 0 && K >= -4 && K <= 4) ||
+                    (N > 0 && N <= 27 && (K == 1 || K == -1)),
+                "a diagonal entry is +-1..4 or +-2^-N");
+  if constexpr (N == 0) {
+    constexpr int A = K < 0 ? -K : K;
+    uint32_t m = x;  // |K| x
+    if constexpr (A >= 2) m = add_on<kMp>(x, x);
+    if constexpr (A == 3) m = add_on<kMp>(m, x);
+    if constexpr (A == 4) m = add_on<kMp>(m, m);
+    if constexpr (K > 0) return add_on<kMp>(sum, m);
+    else return bb::reduce(sum + (bb::P - m));  // sum + p - m in (0, 2p)
+  } else {
+    const uint32_t hi = x >> N;
+    const int32_t r = static_cast<int32_t>(hi * bb::P - x * (15u << (27 - N)));
+    return add_on<kMp>(sum, bb::canon(K > 0 ? r : -r));
+  }
+}
+
+// Every lane I.. of the internal layer: s[i] = sum + diag_i * s[i].
+template <int W, bool kMp, int I = 0>
+__device__ __forceinline__ void shift_diag(uint32_t s[W], uint32_t sum) {
+  if constexpr (I < W) {
+    s[I] = add_diag_term<ShiftDiag<W>::k[I], ShiftDiag<W>::n[I], kMp>(sum, s[I]);
+    shift_diag<W, kMp, I + 1>(s, sum);
+  }
+}
+
 // (s + c)^7 for canonical s and c.
 __device__ __forceinline__ uint32_t sbox(uint32_t s, uint32_t c) {
   const int32_t x = static_cast<int32_t>(s + c - bb::P);  // [-p, p)
@@ -117,73 +181,84 @@ __device__ __forceinline__ uint32_t sbox(uint32_t s, uint32_t c) {
 }
 
 // M_E = circ(2 M4, M4, ..., M4): M4 on each group of 4, then each lane adds
-// the sum of its position across the W / 4 groups.
-template <int W>
+// the sum of its position across the W / 4 groups. kMp: the adds' pipe.
+template <int W, bool kMp>
 __device__ __forceinline__ void external_linear(uint32_t s[W]) {
   static_assert(W == 16 || W == 24, "Poseidon2 widths are 16 and 24");
 #pragma unroll
   for (int g = 0; g < W; g += 4) {
     const uint32_t a = s[g], b = s[g + 1], c = s[g + 2], d = s[g + 3];
-    const uint32_t t01 = add_mp(a, b);
-    const uint32_t t23 = add_mp(c, d);
-    const uint32_t t0123 = add_mp(t01, t23);
-    const uint32_t t01123 = add_mp(t0123, b);
-    const uint32_t t01233 = add_mp(t0123, d);
-    s[g] = add_mp(t01123, t01);                 // 2a + 3b + c + d
-    s[g + 1] = add_mp(t01123, add_mp(c, c));    // a + 2b + 3c + d
-    s[g + 2] = add_mp(t01233, t23);             // a + b + 2c + 3d
-    s[g + 3] = add_mp(t01233, add_mp(a, a));    // 3a + b + c + 2d
+    const uint32_t t01 = add_on<kMp>(a, b);
+    const uint32_t t23 = add_on<kMp>(c, d);
+    const uint32_t t0123 = add_on<kMp>(t01, t23);
+    const uint32_t t01123 = add_on<kMp>(t0123, b);
+    const uint32_t t01233 = add_on<kMp>(t0123, d);
+    s[g] = add_on<kMp>(t01123, t01);                    // 2a + 3b + c + d
+    s[g + 1] = add_on<kMp>(t01123, add_on<kMp>(c, c));  // a + 2b + 3c + d
+    s[g + 2] = add_on<kMp>(t01233, t23);                // a + b + 2c + 3d
+    s[g + 3] = add_on<kMp>(t01233, add_on<kMp>(a, a));  // 3a + b + c + 2d
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    uint32_t acc = add_mp(add_mp(s[k], s[4 + k]), add_mp(s[8 + k], s[12 + k]));
-    if constexpr (W == 24) acc = add_mp(acc, add_mp(s[16 + k], s[20 + k]));
+    uint32_t acc =
+        add_on<kMp>(add_on<kMp>(s[k], s[4 + k]), add_on<kMp>(s[8 + k], s[12 + k]));
+    if constexpr (W == 24) acc = add_on<kMp>(acc, add_on<kMp>(s[16 + k], s[20 + k]));
 #pragma unroll
-    for (int g = 0; g < W; g += 4) s[g + k] = add_mp(s[g + k], acc);
+    for (int g = 0; g < W; g += 4) s[g + k] = add_on<kMp>(s[g + k], acc);
   }
 }
 
-template <int W>
+template <int W, bool kMp>
 __device__ __forceinline__ void external_round(uint32_t s[W], int r) {
 #pragma unroll
   for (int i = 0; i < W; ++i) s[i] = sbox(s[i], Width<W>::ext(r * W + i));
-  external_linear<W>(s);
+  external_linear<W, kMp>(s);
 }
 
 // S-box on lane 0, then M_I = 1 + diag(v): every lane gets the lane sum
 // plus diag_i * x_i. Lanes 1..W-1 are summed while lane 0's S-box runs.
-template <int W>
+// kShiftDiag: the standard diagonal (`ShiftDiag<W>`) by shifts and adds,
+// not from the diagonal table by products; kMp: the adds' pipe.
+template <int W, bool kShiftDiag, bool kMp>
 __device__ __forceinline__ void internal_round(uint32_t s[W], int r) {
   const uint32_t x0 = sbox(s[0], Width<W>::internal(r));
   constexpr int H = W / 2;
   uint32_t t[H];
 #pragma unroll
-  for (int i = 0; i < H - 1; ++i) t[i] = bb::add(s[2 * i + 1], s[2 * i + 2]);
+  for (int i = 0; i < H - 1; ++i) t[i] = add_on<kMp>(s[2 * i + 1], s[2 * i + 2]);
   t[H - 1] = s[W - 1];
 #pragma unroll
-  for (int i = 0; i < H / 2; ++i) t[i] = bb::add(t[2 * i], t[2 * i + 1]);
+  for (int i = 0; i < H / 2; ++i) t[i] = add_on<kMp>(t[2 * i], t[2 * i + 1]);
   uint32_t sum;
   if constexpr (W == 16) {
-    sum = bb::add(bb::add(bb::add(t[0], t[1]), bb::add(t[2], t[3])), x0);
+    sum = add_on<kMp>(add_on<kMp>(add_on<kMp>(t[0], t[1]), add_on<kMp>(t[2], t[3])), x0);
   } else {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) t[i] = bb::add(t[2 * i], t[2 * i + 1]);
-    sum = bb::add(bb::add(bb::add(t[0], t[1]), t[2]), x0);
+    for (int i = 0; i < 3; ++i) t[i] = add_on<kMp>(t[2 * i], t[2 * i + 1]);
+    sum = add_on<kMp>(add_on<kMp>(add_on<kMp>(t[0], t[1]), t[2]), x0);
   }
-  s[0] = bb::add(sum, bb::mul(Width<W>::diag(0), x0));
+  if constexpr (kShiftDiag) {
+    s[0] = x0;
+    shift_diag<W, kMp>(s, sum);
+  } else {
+    s[0] = add_on<kMp>(sum, bb::mul(Width<W>::diag(0), x0));
 #pragma unroll
-  for (int i = 1; i < W; ++i) s[i] = bb::add(sum, bb::mul(Width<W>::diag(i), s[i]));
+    for (int i = 1; i < W; ++i) s[i] = add_on<kMp>(sum, bb::mul(Width<W>::diag(i), s[i]));
+  }
 }
 
-template <int W>
+// The permutation of one state. Width 16 takes the defaults: the diagonal
+// from its table, the external layer's adds on the multiply pipe, the
+// internal layer's where the compiler puts them.
+template <int W, bool kShiftDiag = false, bool kExtMp = true, bool kIntMp = false>
 __device__ void permute(uint32_t s[W]) {
-  external_linear<W>(s);
+  external_linear<W, kExtMp>(s);
 #pragma unroll 1
-  for (int r = 0; r < ROUNDS_F / 2; ++r) external_round<W>(s, r);
+  for (int r = 0; r < ROUNDS_F / 2; ++r) external_round<W, kExtMp>(s, r);
 #pragma unroll 1
-  for (int r = 0; r < Width<W>::rounds_p; ++r) internal_round<W>(s, r);
+  for (int r = 0; r < Width<W>::rounds_p; ++r) internal_round<W, kShiftDiag, kIntMp>(s, r);
 #pragma unroll 1
-  for (int r = ROUNDS_F / 2; r < ROUNDS_F; ++r) external_round<W>(s, r);
+  for (int r = ROUNDS_F / 2; r < ROUNDS_F; ++r) external_round<W, kExtMp>(s, r);
 }
 
 // W words from 16-byte-aligned src into s, and back.
@@ -203,15 +278,15 @@ __device__ __forceinline__ void store_lanes(uint4* dst, const uint32_t s[W]) {
     dst[q] = make_uint4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
 }
 
-// One state of W lanes per thread.
-template <int W>
+// One state of W lanes per thread; the template arguments are `permute`'s.
+template <int W, bool kShiftDiag = false, bool kExtMp = true, bool kIntMp = false>
 __device__ __forceinline__ void permute_rows(const uint32_t* __restrict__ in,
                                              uint32_t* __restrict__ out, int64_t S) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= S) return;
   uint32_t s[W];
   load_lanes<W>(s, reinterpret_cast<const uint4*>(in + t * W));
-  permute<W>(s);
+  permute<W, kShiftDiag, kExtMp, kIntMp>(s);
   store_lanes<W>(reinterpret_cast<uint4*>(out + t * W), s);
 }
 
@@ -221,10 +296,22 @@ permute_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   permute_rows<WIDTH>(in, out, S);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The width-24 kernels' geometry: one state per thread, 8 resident CTAs of
+// THREADS per SM (at most 64 registers), so (2^18, 24) is 1.94 waves on 132
+// SMs where 40 registers and 12 CTAs made 1.29.
+constexpr int P24_MIN_BLOCKS = 8;
+
+// kShiftDiag: the standard diagonal by shifts; otherwise the installed
+// diagonal table (any constants of `load_constants`) by products. The adds
+// each instance issues as IMADs (`add_mp`) rather than leaving to the ALU
+// are the placement that measured fastest (PERF.md, the width-24
+// findings), not one the pipes' loads predict: the shift instance's
+// internal layer's, the general one's external layer's, as width 16 does.
+template <bool kShiftDiag>
+__global__ void __launch_bounds__(THREADS, P24_MIN_BLOCKS)
 permute24_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                  int64_t S) {
-  permute_rows<24>(in, out, S);
+  permute_rows<24, kShiftDiag, !kShiftDiag, kShiftDiag>(in, out, S);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
@@ -368,11 +455,16 @@ extern "C" int p2_set_constants24(const uint32_t* ext, const uint32_t* internal,
   return static_cast<int>(e);
 }
 
-// (S, 24) states, rows 16-byte aligned.
+// (S, 24) states, rows 16-byte aligned; shift_diag: the installed diagonal
+// is the standard one (ops/poseidon2.py `shift_diag24`).
 extern "C" int p2_permute24(const uint32_t* in, uint32_t* out, int64_t S,
-                            void* stream) {
-  permute24_kernel<<<blocks_for(S, THREADS), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(in, out, S);
+                            int shift_diag, void* stream) {
+  const unsigned blocks = blocks_for(S, THREADS);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (shift_diag)
+    permute24_kernel<true><<<blocks, THREADS, 0, st>>>(in, out, S);
+  else
+    permute24_kernel<false><<<blocks, THREADS, 0, st>>>(in, out, S);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,10 +11,16 @@
   built library (`cuobjdump`).
 - `ptxas_resources`: what `-Xptxas -v` said of each kernel at the build
   (registers, stack frame, spill stores and loads).
+- `sass_listing`: each kernel's SASS as (address, opcode, operands).
 - `pipe_rates`: results per clock per SM of the integer instructions the
   kernels are made of (IMAD, IMAD.WIDE, IMAD.HI, IADD3), each alone and
   IMAD.HI with IADD3 interleaved, timed with `clock64()` on the card (the
-  IMAD.WIDE probe folds each product with one LOP3, an ALU op).
+  IMAD.WIDE probe folds each product with one LOP3, an ALU op); with
+  `alu=True` also SHF, IMAD with SHF interleaved and the fused add-and-min
+  VIADDMNMX of every modular add (the compiler may merge two dependent
+  adds into one three-input IADD3, so the IADD3 row can read up to twice
+  its issue rate, which the SHF row, a funnel shift by a run-time amount,
+  cannot).
 - `kernel_census`: one call under torch.profiler with device activity
   only: launches and device ms per kernel (the port's, the plain torch
   kernels, copies), device busy time and the idle share.
@@ -110,17 +116,25 @@ def kernel_census(fn) -> dict:
                          sorted(per_kind.items(), key=lambda kv: -kv[1][1])}}
 
 
-def sass_functions(path: str) -> dict:
-    """cuobjdump -sass of a binary -> {function: Counter of opcodes}."""
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_listing(path: str) -> dict:
+    """cuobjdump -sass of a binary -> {function: [(address, opcode, operands)]}."""
     text = subprocess.run([f"{CUDA_BIN}/cuobjdump", "-sass", path], check=True,
                           capture_output=True, text=True).stdout
     out = {}
     for part in re.split(r"\n\s*Function : ", text)[1:]:
         name = part.split("\n", 1)[0].strip()
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)",
-                         part)
-        out[name] = collections.Counter(op for op in ops if op != "NOP")
+        out[name] = [(int(a, 16), op, rest.strip()) for a, op, rest in _SASS_LINE.findall(part)
+                     if op != "NOP"]
     return out
+
+
+def sass_functions(path: str) -> dict:
+    """cuobjdump -sass of a binary -> {function: Counter of opcodes}."""
+    return {name: collections.Counter(op for _, op, _ in listing)
+            for name, listing in sass_listing(path).items()}
 
 
 def _nvcc(args):
@@ -223,6 +237,14 @@ __global__ void __launch_bounds__(THREADS, 2) k(uint32_t* out, long long* cyc) {
         asm volatile("mul.hi.s32 %0, %0, %1;" : "+r"(a[i]) : "r"(x));
         asm volatile("add.u32 %0, %0, %1;" : "+r"(b[i]) : "r"(x));
       }
+      if (OP == 5) asm volatile("shf.l.wrap.b32 %0, %0, %0, %1;" : "+r"(a[i]) : "r"(x));
+      if (OP == 6) {
+        asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(a[i]) : "r"(x), "r"(b[i]));
+        asm volatile("shf.l.wrap.b32 %0, %0, %0, %1;" : "+r"(b[i]) : "r"(x));
+      }
+      if (OP == 7)
+        asm volatile("{.reg .u32 t; add.u32 t, %0, %1; min.u32 %0, t, %2;}"
+                     : "+r"(a[i]) : "r"(x), "r"(b[i]));
     }
   }
   const long long t1 = clock64();
@@ -243,7 +265,7 @@ void run(const char* name, int per_iter, int sms, uint32_t* out, long long* cyc)
   printf("{\"op\": \"%s\", \"per_clock_per_sm\": %.2f, \"err\": %d}\n", name,
          2.0 * THREADS * ITERS * CH * per_iter / worst, (int)e);
 }
-int main() {
+int main(int argc, char**) {
   int sms; cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
   uint32_t* out; long long* cyc;
   cudaMalloc(&out, 2 * sms * THREADS * 4); cudaMalloc(&cyc, 2 * sms * 8);
@@ -252,14 +274,20 @@ int main() {
   run<2>("IMAD.HI", 1, sms, out, cyc);
   run<3>("IADD3", 1, sms, out, cyc);
   run<4>("IMAD.HI + IADD3", 2, sms, out, cyc);
+  if (argc > 1) {  // the ALU probes
+    run<5>("SHF", 1, sms, out, cyc);
+    run<6>("IMAD + SHF", 2, sms, out, cyc);
+    run<7>("VIADDMNMX", 1, sms, out, cyc);
+  }
   return 0;
 }
 """
 
 
-def pipe_rates(build_dir: str) -> list:
+def pipe_rates(build_dir: str, alu: bool = False) -> list:
     """[{"op", "per_clock_per_sm", "sass"}]: instructions completed per SM
-    clock, all SMs loaded (the SASS opcodes of each probe kernel beside)."""
+    clock, all SMs loaded (the SASS opcodes of each probe kernel beside);
+    `alu` adds the SHF, IMAD + SHF and VIADDMNMX probes."""
     os.makedirs(build_dir, exist_ok=True)
     src = os.path.join(build_dir, "pipe_probe.cu")
     exe = os.path.join(build_dir, "pipe_probe")
@@ -267,7 +295,8 @@ def pipe_rates(build_dir: str) -> list:
         f.write(PIPE_PROBE)
     _nvcc([src, "-o", exe])
     sass = [ops for name, ops in sorted(sass_functions(exe).items()) if "ILi" in name]
-    run = subprocess.run([exe], check=True, capture_output=True, text=True).stdout
+    run = subprocess.run([exe, *(["alu"] if alu else [])], check=True, capture_output=True,
+                         text=True).stdout
     rows = [json.loads(line) for line in run.splitlines() if line.startswith("{")]
     for row, ops in zip(rows, sass):
         row["sass"] = dict(ops.most_common(4))

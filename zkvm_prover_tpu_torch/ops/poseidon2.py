@@ -10,7 +10,11 @@ row sponge (`hash_rows`) and the 2:1 compression for CUDA tensors, the
 latter several Merkle levels per launch (`compress_levels`); a CPU tensor
 takes the plain torch version. Width 24 is off the proving path; its
 launches have their own counter (`launches_w24`), so that the proving
-paths' checks that every counter moved read `launches` alone.
+paths' checks that every counter moved read `launches` alone. Width 24
+has two kernel instances, chosen from the installed constants: with the
+standard diagonal (`shift_diag24`) the internal layer multiplies by its
+entries, each +-1..4 or +-2^-n, with shifts and adds (`diag_plan`);
+with any other diagonal it takes the table's products.
 
 The host side (challenger, verifier, the wire circuit builder) permutes
 with `permute_np`: the reference's native C++ permutation (`p2_native.py`),
@@ -53,7 +57,7 @@ DIGEST = 8
 
 launches = {"poseidon2_permute": 0, "poseidon2_hash_rows": 0,
             "poseidon2_compress": 0}
-launches_w24 = {"poseidon2_permute24": 0}
+launches_w24 = {"poseidon2_permute24": 0, "poseidon2_permute24_general": 0}
 
 
 def _parse_diag_entry(e) -> int:
@@ -101,6 +105,42 @@ def constants(width: int):
     return bb.to_monty_np(ext), bb.to_monty_np(internal), bb.to_monty_np(diag)
 
 
+@functools.lru_cache(maxsize=None)
+def _diag_terms() -> dict:
+    """Canonical value -> (k, n) with value = k * 2^-n mod p, for n = 0 and
+    k in +-{1, 2, 3, 4}, and for k = +-1 and n in 1..27."""
+    out = {}
+    for k in (1, -1, 2, -2, 3, -3, 4, -4):
+        out.setdefault(k % bb.P, (k, 0))
+    for n in range(1, bb.TWO_ADICITY + 1):
+        v = pow(2, -n, bb.P)
+        out.setdefault(v, (1, n))
+        out.setdefault(bb.P - v, (-1, n))
+    return out
+
+
+def diag_plan(diag):
+    """The shift-and-add plan of a Montgomery diagonal: per lane (k, n) with
+    entry = k * 2^-n mod p (as `_diag_terms`), or None where an entry has
+    no such form and the kernel must take products."""
+    terms = _diag_terms()
+    plan = tuple(terms.get(int(v)) for v in bb.from_monty_np(np.asarray(diag)))
+    return None if None in plan else plan
+
+
+# The plan compiled into the width-24 shift instance (csrc/poseidon2.cu
+# `ShiftDiag<24>`): that of the standard diagonal.
+SHIFT_PLAN24 = ((-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
+                (-4, 0), (1, 8), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6), (1, 27),
+                (-1, 8), (-1, 2), (-1, 3), (-1, 4), (-1, 5), (-1, 6), (-1, 27), (1, 2))
+
+
+# States the width-24 kernel holds resident on one SM (csrc/poseidon2.cu
+# THREADS x P24_MIN_BLOCKS, one state per thread): a launch of this many
+# states per SM fills whole waves.
+PERMUTE24_WAVE_PER_SM = 128 * 8
+
+
 _OVERRIDES = {}
 _VERSION = [0]  # bumped by load_constants; device copies follow it
 
@@ -122,6 +162,17 @@ def reset_constants():
 
 def _get_constants(width):
     return _OVERRIDES.get(width) or constants(width)
+
+
+_SHIFT24 = [None, False]  # (_VERSION it was read at, shift_diag24())
+
+
+def shift_diag24() -> bool:
+    """Whether the installed width-24 diagonal is the one the shift instance
+    computes: the kernel instance follows the constants, never the caller."""
+    if _SHIFT24[0] != _VERSION[0]:
+        _SHIFT24[:] = [_VERSION[0], diag_plan(_get_constants(24)[2]) == SHIFT_PLAN24]
+    return _SHIFT24[1]
 
 
 _DEV_CONSTS = {}
@@ -286,9 +337,12 @@ def permute(state):
                                         state.shape[0], stream), "p2_permute")
             launches["poseidon2_permute"] += 1
         else:
+            shift = shift_diag24()
             _build.check(lib.p2_permute24(state.data_ptr(), out.data_ptr(),
-                                          state.shape[0], stream), "p2_permute24")
-            launches_w24["poseidon2_permute24"] += 1
+                                          state.shape[0], int(shift), stream),
+                         "p2_permute24")
+            launches_w24["poseidon2_permute24" if shift else
+                         "poseidon2_permute24_general"] += 1
     return out
 
 
